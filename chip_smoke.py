@@ -23,17 +23,35 @@ Phases, each of which fails the run:
   6. check the outputs: finite, the expected shapes, overflow == 0, the
      served relevancy maximum equal to a direct computation, and the card's
      rasterize equal to the oracle (splat/reference.py) on a small scene;
-  7. print {"kernels": [...]} with times, bounds and launch counts, then
-     the card's name and power limit, then the final {"ok": true, ...}.
+  7. train: write the full-width training configuration of
+     scripts/train_bench.py to a temporary directory with the port's own
+     writers (make_scene(300_000, seed=0, extent=3.0) as a PLY, four
+     PINHOLE cameras at 1280x720 around the bench camera, per camera 300
+     unit-norm 512-dim f16 CLIP embeddings and a (4, 720, 1280) seg map with
+     ids in [-1, 300)), then train 40 steps through
+     gags_torch.cli.train_gad.run at -r 2 (640x360, 16-dim features,
+     512-dim CLIP, 4096 segments) with the launch counts set to 0 just
+     before and read just after: K1-K4 must each have launched, the loss
+     must stay finite; step times from CUDA events;
+  8. K1-K4 against their plain versions on camera 0's binning (overflow 0
+     at budget factor 4) and the real cotangents of its loss, with times,
+     bounds and index_add_ yardsticks (K4 at 1025 and 4097 segments, for
+     2 and 33 channels); profile one training step;
+  9. serve the trained model dir (load_server) and check one relevancy map;
+ 10. print {"kernels": [...]} with times, bounds and launch counts of
+     K1-K6, then the card's name and power limit, then the final
+     {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import base64
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -50,6 +68,13 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ATOL, RTOL = 2e-5, 1e-4
 FLIP_FRACTION = 1e-4  # NUMERICS.md: isolated threshold flips, <= 0.01%
 FLIP_MEAN = 1e-5
+# the training configuration (scripts/train_bench.py's full-width scene,
+# rendered at -r 2 as scripts/GAD.sh runs it)
+TRAIN_N = 300_000
+TRAIN_SRC_W, TRAIN_SRC_H = 1280, 720
+TRAIN_CAMERAS = 4
+TRAIN_MASKS = 300
+TRAIN_STEPS = 40
 
 
 def fail(msg: str) -> None:
@@ -96,7 +121,7 @@ def flip_tolerant_compare(got: torch.Tensor, want: torch.Tensor, what: str) -> d
     return res
 
 
-def profile_request(fn, label: str, top: int = 8) -> None:
+def profile_request(fn, label: str, top: int = 8) -> dict:
     """Wall time, device busy time and idle share of one served request,
     and the kernels that took the most device time (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -118,6 +143,7 @@ def profile_request(fn, label: str, top: int = 8) -> None:
           f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     for e in rows[:top]:
         print(f"#   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -144,6 +170,319 @@ def decode_png(b64: str) -> np.ndarray:
     n = int(np.frombuffer(b[33:37], ">u4")[0])
     rows = np.frombuffer(zlib.decompress(b[41 : 41 + n]), np.uint8)
     return rows.reshape(int(h), 1 + 3 * int(w))[:, 1:].reshape(int(h), int(w), 3)
+
+
+def sum_compare(got: torch.Tensor, want: torch.Tensor, abs_sum: torch.Tensor, what: str,
+                rtol: float = 1e-5) -> dict:
+    """Sums taken in another order: each value is held to rtol of the sum
+    of its terms' absolute values (the scale of float32 reordering error)."""
+    err = (got - want).abs()
+    res = {"max_abs_err": float(err.max()), "max_rel_err": float((err / abs_sum.clamp_min(1e-30)).max())}
+    print(f"# {what}: {res}", flush=True)
+    if not torch.isfinite(got).all() or bool((err > rtol * abs_sum).any()):
+        fail(f"{what} disagrees with its plain version: {res}")
+    return res
+
+
+def write_train_fixture(root: str) -> str:
+    """The training scene on disk, written with the port's own writers;
+    returns the pretrained PLY's path."""
+    import math
+
+    from gags_torch.core.camera import look_at
+    from gags_torch.models.weights import scene_from_arrays
+    from gags_torch.scene import colmap as cm
+    from gags_torch.utils.synthetic import make_scene
+
+    rng = np.random.default_rng(0)
+    sparse = os.path.join(root, "sparse", "0")
+    feat_dir = os.path.join(root, "language_features")
+    os.makedirs(sparse)
+    os.makedirs(feat_dir)
+    w, h = TRAIN_SRC_W, TRAIN_SRC_H
+    fx = w / (2 * math.tan(math.radians(30.0)))  # make_camera's 60 degree field of view
+    cams = {1: cm.ColmapCamera(1, "PINHOLE", w, h, np.array([fx, fx, w / 2, h / 2]))}
+    imgs = {}
+    for i in range(TRAIN_CAMERAS):
+        ang = 2 * np.pi * i / TRAIN_CAMERAS
+        eye = np.array([0.25 * np.cos(ang), 0.15 * np.sin(ang), -0.2])
+        vm = look_at(eye, np.array([0.0, 0.0, 6.0]), np.array([0.0, -1.0, 0.0])).astype(np.float64)
+        imgs[i + 1] = cm.ColmapImage(i + 1, cm.rotmat_to_qvec(vm[:3, :3]), vm[:3, 3], 1,
+                                     f"cam{i:02d}.png")
+        emb = rng.normal(size=(TRAIN_MASKS, 512))
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        np.save(os.path.join(feat_dir, f"cam{i:02d}_f.npy"), emb.astype(np.float16))
+        seg = np.zeros((4, h, w), np.float32)
+        for level, block in ((1, 24), (2, 48), (3, 96)):  # s, m, l regions
+            coarse = rng.integers(-1, TRAIN_MASKS, size=(-(-h // block), -(-w // block)))
+            seg[level] = np.repeat(np.repeat(coarse, block, 0), block, 1)[:h, :w]
+        np.save(os.path.join(feat_dir, f"cam{i:02d}_s.npy"), seg)
+    cm.write_cameras_binary(os.path.join(sparse, "cameras.bin"), cams)
+    cm.write_images_binary(os.path.join(sparse, "images.bin"), imgs)
+    raw = make_scene(TRAIN_N, seed=0, extent=3.0)
+    scene = scene_from_arrays(raw["means"], raw["quats"], np.log(raw["scales"]),
+                              np.log(raw["opacities"] / (1.0 - raw["opacities"])), raw["sh"])
+    ply = os.path.join(root, "pretrained.ply")
+    scene.save_ply(ply)
+    return ply
+
+
+def train_phase(dev: torch.device, gpu: str) -> list:
+    """Phases 7-9: train through the CLI entry point, hold K1-K4 against
+    their plain versions on the run's own data, profile a step, serve the
+    trained model dir. Returns the kernels' report entries."""
+    from gags_torch.cli.serve import load_server
+    from gags_torch.cli.train_gad import RunConfig, _bin_cache, run
+    from gags_torch.core.camera import Camera
+    from gags_torch.gad.data import GadDataset
+    from gags_torch.gad.supervision import mixed_seg_map
+    from gags_torch.gad.train import (GadConfig, _supervision_losses, frozen_geometry,
+                                      make_train_step_binned, supervised_l1_pix)
+    from gags_torch.scene.dataset import detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat import kernels
+    from gags_torch.splat.projection import project_gaussians
+    from gags_torch.splat.rasterizer import (_geom_table, _image_to_tiles, order_ext,
+                                             prepare_binning, rasterize_binned)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        ply = write_train_fixture(root)
+        print(f"# training fixture written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # -- 7. train through the entry point --------------------------------
+        events, metrics = [], []
+
+        def on_step(it, state, m):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            if m is not None:
+                metrics.append(m)
+
+        rc = RunConfig(source_path=root, model_path=model, ply_path=ply, resolution=2,
+                       iterations=TRAIN_STEPS, save_iterations=str(TRAIN_STEPS),
+                       test_iterations="", device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run(rc, on_step=on_step)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        run_s = time.perf_counter() - t0
+        print(f"# launches during training: {launches}")
+        for name in ("blend_forward_aligned", "blend_backward", "sorted_segment_sum",
+                     "dense_segment_sum"):
+            if launches[name] <= 0:
+                fail(f"{name} was not launched while training")
+        losses = [float(m["loss"]) for m in metrics]
+        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"training losses {losses}")
+        step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+        steady = np.asarray(step_ms[9:])  # steps 10-40
+        steps = dict(cold_first_ms=step_ms[0], median_ms=float(np.median(steady)),
+                     p90_ms=float(np.percentile(steady, 90)), steps=len(step_ms))
+        print(f"# train: {TRAIN_STEPS} steps in {run_s:.1f} s (set-up included); step ms: {steps}; "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f} ({gpu})", flush=True)
+
+        # -- 8. K1-K4 vs their plain versions on camera 0 --------------------
+        cfg = GadConfig()
+        info = detect_and_load(root)
+        ds = GadDataset(info.train_cameras, resolution=2)
+        w, h = ds.width, ds.height
+        geometry = GaussianScene.from_ply(
+            os.path.join(model, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply"),
+            device=dev)
+        geo = frozen_geometry(geometry)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(0).items()}
+        b = prepare_binning(geo["means"], geo["quats"], geo["scales"], batch["viewmat"],
+                            batch["K"], w, h, cfg.raster, opacities=geo["opacities"])
+        if int(b.overflow) != 0:
+            fail(f"training binning overflow {int(b.overflow)} at budget_factor "
+                 f"{cfg.raster.budget_factor}")
+        # the binning the trainer used: its cache at the auto-tight budget
+        cache, budget = _bin_cache(geo, ds, cfg, dev)
+        batch.update(cache[0])
+        b = b._replace(inst_gid=cache[0]["inst_gid"], tile_starts=cache[0]["tile_starts"],
+                       tile_counts=cache[0]["tile_counts"], order=cache[0]["order"],
+                       red=b.red._replace(slot_to_pos=cache[0]["red_slot"],
+                                          slot_rank=cache[0]["red_rank"],
+                                          chunk_block=cache[0]["red_block"]))
+        th, tw = cfg.raster.tile_h, cfg.raster.tile_w
+        tx, ty = -(-w // tw), -(-h // th)
+        n, fdim = geometry.semantic_features.shape
+        print(f"# camera 0 at {w}x{h}: {int(b.num_valid)} instances, {b.inst_gid.numel()} slots "
+              f"at the tight budget {budget}, {tx * ty} tiles of {th}x{tw}", flush=True)
+        # the real cotangent of the tile image under the late-schedule loss
+        feats = geometry.semantic_features.clone().requires_grad_(True)
+        feat_map, _ = rasterize_binned(
+            geo["means"], geo["quats"], geo["scales"], geo["opacities"], feats, batch["viewmat"],
+            batch["K"], b.inst_gid, b.tile_starts, b.tile_counts, w, h, config=cfg.raster,
+            order=b.order, red_slot=b.red.slot_to_pos, red_rank=b.red.slot_rank,
+            red_block=b.red.chunk_block)
+        feat_map.retain_grad()
+        l1, ent, regvar, _ = _supervision_losses(cfg, state.decoder, state.scale_decoder,
+                                                 feat_map, batch)
+        (l1 + 2e-3 * ent + 0.1 * regvar).backward()
+        g_tiles = _image_to_tiles(feat_map.grad, tx, ty, th, tw)
+        # K2 is linear in g: scaled to max |g| = 1, atol 1e-6 means something
+        g_tiles = (g_tiles / g_tiles.abs().max()).contiguous()
+        with torch.no_grad():
+            proj = project_gaussians(geo["means"], geo["quats"], geo["scales"], batch["viewmat"],
+                                     batch["K"], w, h)
+            perm = order_ext(b.order.long())
+            geom_p = _geom_table(proj, geo["opacities"])[perm].contiguous()
+            cols_p = torch.cat([geometry.semantic_features,
+                                torch.zeros((1, fdim), device=dev)])[perm].contiguous()
+            px = feat_map.detach().reshape(-1, fdim)
+            scale_px = state.scale_decoder(px)
+            seg_mixed = mixed_seg_map(batch["seg_map"], scale_px.reshape(h, w, 3))
+            l1_pix = supervised_l1_pix(cfg, state.decoder(px), scale_px, batch).reshape(-1)
+        report = []
+
+        # K1
+        bg = torch.zeros((fdim,), device=dev)
+        a1 = (geom_p, cols_p, b.inst_gid, b.tile_starts, b.tile_counts, bg, tx, ty, th, tw)
+        out_k = kernels.blend_forward_aligned(*a1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, walked, blended = kernels.blend_forward_plain(*a1, return_pairs=True)
+        torch.cuda.synchronize()
+        k1_plain = (time.perf_counter() - t0) * 1e3
+        cmp1 = flip_tolerant_compare(out_k, out_p, f"K1 blend_forward_aligned C={fdim}")
+        nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel()
+                  + 2 * b.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
+        ops = 16 * walked + (4 + 2 * fdim) * blended
+        report.append(dict(
+            name="blend_forward_aligned", id="K1", route="cuda",
+            source="gags_torch/splat/csrc/blend_forward.cu",
+            replaces="gags_tpu/splat/pallas_kernel.py:1909",
+            ms=cuda_ms(lambda: kernels.blend_forward_aligned(*a1), 20), plain_ms=k1_plain,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
+            library_ms=None, pairs_walked=walked, pairs_blended=blended, **cmp1))
+        del out_k, out_p
+
+        # K2
+        a2 = (geom_p, b.inst_gid, b.tile_starts, b.tile_counts, g_tiles, tx, ty, th, tw)
+        grad_k = kernels.blend_backward(*a2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad_p, walked2, blended2 = kernels.blend_backward_plain(*a2, return_pairs=True)
+        torch.cuda.synchronize()
+        k2_plain = (time.perf_counter() - t0) * 1e3
+        err = (grad_k - grad_p).abs()
+        outside = err > 1e-6 + 1e-4 * grad_p.abs()
+        cmp2 = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                "frac_outside": float(outside.float().mean()),
+                "max_abs_grad": float(grad_p.abs().max())}
+        print(f"# K2 blend_backward C={fdim}: {cmp2}", flush=True)
+        if not torch.isfinite(grad_k).all() or cmp2["frac_outside"] > FLIP_FRACTION:
+            fail(f"K2 blend_backward disagrees with its plain version: {cmp2}")
+        nbytes = (geom_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
+                  + g_tiles.numel() + grad_k.numel()) * 4
+        ops = 16 * walked2 + 2 * fdim * blended2
+        report.append(dict(
+            name="blend_backward", id="K2", route="cuda",
+            source="gags_torch/splat/csrc/blend_backward.cu",
+            replaces="gags_tpu/splat/pallas_kernel.py:1969",
+            ms=cuda_ms(lambda: kernels.blend_backward(*a2), 20), plain_ms=k2_plain,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
+            library_ms=None, pairs_walked=walked2, pairs_blended=blended2,
+            max_abs_err=cmp2["max_abs_err"], mean_abs_err=cmp2["mean_abs_err"]))
+        del grad_p
+
+        # K3, on K2's rows
+        red = b.red
+        a3 = (grad_k, red.slot_to_pos, red.slot_rank, red.chunk_block, n)  # as _Blend calls it
+        got = kernels.sorted_segment_sum(*a3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kernels.sorted_segment_sum_plain(*a3)
+        torch.cuda.synchronize()
+        k3_plain = (time.perf_counter() - t0) * 1e3
+        abs_sum = kernels.sorted_segment_sum_plain(grad_k.abs(), *a3[1:])
+        cmp3 = sum_compare(got, want, abs_sum, f"K3 sorted_segment_sum C={fdim}")
+        gid_l = b.inst_gid.long()
+        lib = torch.zeros((n + 1, fdim), device=dev).index_add_(0, gid_l, grad_k)
+        sum_compare(got, lib[:n], abs_sum, "K3 vs index_add_")
+        nbytes = (grad_k.numel() + 2 * red.slot_rank.numel() + red.chunk_block.numel()
+                  + got.numel()) * 4
+        report.append(dict(
+            name="sorted_segment_sum", id="K3", route="cuda",
+            source="gags_torch/splat/csrc/sorted_segment_sum.cu",
+            replaces="gags_tpu/splat/pallas_kernel.py:1431",
+            ms=cuda_ms(lambda: kernels.sorted_segment_sum(*a3), 50), plain_ms=k3_plain,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_ms=grad_k.numel() / FP32_OPS_PER_S * 1e3,
+            library_ms=cuda_ms(lambda: torch.zeros((n + 1, fdim), device=dev).index_add_(
+                0, gid_l, grad_k), 50),
+            **cmp3))
+
+        # K4 at 1025 and 4097 segments, 2 and 33 channels
+        ids = (seg_mixed + 1).reshape(-1).to(torch.int32).contiguous()
+        ids_l = ids.long()
+        ones = torch.ones_like(l1_pix)[:, None]
+        inputs = {2: torch.cat([ones, l1_pix[:, None]], 1).contiguous(),
+                  1 + 2 * fdim: torch.cat([ones, px, px * px], 1).contiguous()}
+        k4 = {}
+        for segs in (1025, cfg.max_segments + 1):
+            for c, vals in inputs.items():
+                got = kernels.dense_segment_sum(vals, ids, segs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = kernels.dense_segment_sum_plain(vals, ids, segs)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                abs_sum = kernels.dense_segment_sum_plain(vals.abs(), ids, segs)
+                cmp4 = sum_compare(got, want, abs_sum, f"K4 dense_segment_sum S={segs} C={c}")
+                nbytes = (vals.numel() + ids.numel() + got.numel()) * 4
+                k4[f"S={segs},C={c}"] = dict(
+                    ms=cuda_ms(lambda: kernels.dense_segment_sum(vals, ids, segs), 50),
+                    plain_ms=plain_ms, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    ops_ms=vals.numel() / FP32_OPS_PER_S * 1e3,
+                    library_ms=cuda_ms(lambda: torch.zeros((segs, c), device=dev).index_add_(
+                        0, ids_l, vals), 50),
+                    **cmp4)
+                print(f"# K4 S={segs} C={c}: {k4[f'S={segs},C={c}']}", flush=True)
+        head = k4[f"S={cfg.max_segments + 1},C={1 + 2 * fdim}"]
+        report.append(dict(
+            name="dense_segment_sum", id="K4", route="cuda",
+            source="gags_torch/splat/csrc/dense_segment_sum.cu",
+            replaces="gags_tpu/splat/pallas_kernel.py:1853",
+            **head, by_config=k4))
+        for r in report[:2]:
+            print(f"# {r['id']} {r['name']}: ms {r['ms']:.4f}, plain {r['plain_ms']:.1f} ms, "
+                  f"bound {max(r['bytes_ms'], r['ops_ms']):.4f} ms ({gpu})", flush=True)
+
+        # one training step, profiled (after the counted run)
+        step_fn = make_train_step_binned(w, h, cfg)
+        prof = profile_request(lambda: step_fn(state, geo, batch, 1e-3, 0.0),
+                               f"train step {w}x{h} / {n} Gaussians", top=16)
+        steps.update(prof)
+
+        # -- 9. serve what the trainer wrote ---------------------------------
+        server = load_server(model, TRAIN_STEPS, device=dev)
+        cam = Camera(viewmat=batch["viewmat"], K=batch["K"], width=w, height=h)
+        rng = np.random.default_rng(1)
+        pos = rng.normal(size=(1, 512)).astype(np.float32)
+        neg = rng.normal(size=(3, 512)).astype(np.float32)
+        rel = server.relevancy_map(cam, torch.as_tensor(pos / np.linalg.norm(pos), device=dev),
+                                   torch.as_tensor(neg / np.linalg.norm(neg, axis=1, keepdims=True),
+                                                   device=dev))
+        if rel.shape != (1, h, w) or not torch.isfinite(rel).all():
+            fail(f"relevancy of the trained model: {tuple(rel.shape)}, finite "
+                 f"{bool(torch.isfinite(rel).all())}")
+        print(f"# served the trained model dir: relevancy max {float(rel.max()):.4f}", flush=True)
+
+    for r in report:
+        r["launches"] = launches[r["name"]]
+        r["launches_per_step"] = launches[r["name"]] / TRAIN_STEPS
+        r["check"] = "ok"
+        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+        r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+    report[0]["train_steps"] = steps
+    return report
 
 
 def main() -> int:
@@ -184,7 +523,7 @@ def main() -> int:
         semantic_features=raw["features"], device=dev,
     )
     cam = make_camera(WIDTH, HEIGHT, device=dev)
-    cfg = RasterizeConfig()
+    cfg = RasterizeConfig(aligned=False)  # the serving layout
     g = dict(means=scene.means, quats=scene.quats, scales=scene.scales,
              opacities=scene.opacities)
     proj, binned, geom, tx, ty = _prepare(
@@ -342,7 +681,7 @@ def main() -> int:
     scam = make_camera(160, 96, device=dev)
     st = {k: torch.as_tensor(v, device=dev) for k, v in small.items()}
     res = rasterize(st["means"], st["quats"], st["scales"], st["opacities"], st["features"],
-                    scam.viewmat, scam.K, 160, 96, config=RasterizeConfig(tile_h=16, tile_w=16),
+                    scam.viewmat, scam.K, 160, 96, config=RasterizeConfig(tile_h=16, tile_w=16, aligned=False),
                     device=dev)
     p = project_gaussians(st["means"], st["quats"], st["scales"], scam.viewmat, scam.K, 160, 96)
     ref_img, ref_alpha = rasterize_reference(p.means2d, p.conics, p.depths, p.radii,
@@ -351,9 +690,18 @@ def main() -> int:
     flip_tolerant_compare(res.image, ref_img, "rasterize vs oracle (3000 Gaussians, 160x96)")
     flip_tolerant_compare(res.alpha, ref_alpha, "rasterize alpha vs oracle")
 
-    # -- 7. report -------------------------------------------------------------
+    # -- 7-9. train, K1-K4, serve the trained model ------------------------------
+    train_kernels = train_phase(dev, gpu)
+
+    # -- 10. report --------------------------------------------------------------
     f16 = k5["features"]
+    keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
+        {**{k: r[k] for k in keep}, **{k: v for k, v in r.items()
+                                       if k not in keep and k not in ("bytes_ms", "ops_ms")}}
+        for r in train_kernels
+    ] + [
         {
             "name": "expand_gid", "id": "K6", "route": "cuda",
             "source": "gags_torch/splat/csrc/expand_gid.cu",

@@ -5,8 +5,9 @@ interface and is compiled with ``nvcc`` into its own shared library under
 ``build/gags_torch/`` in the checkout, at first use; ctypes loads it. No
 PyTorch header is included, so a build takes seconds, not minutes.
 
-Libraries are named after a hash of their source and flags, so an edited
-source is rebuilt and an unchanged one is reused. Compilation goes to a
+Libraries are named after a hash of their source, the local headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. Compilation goes to a
 temporary name and is renamed into place, so two processes building the
 same library never see a half-written file.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,8 +50,31 @@ def nvcc_path() -> str:
     raise RuntimeError("gags_torch: nvcc not found (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _local_headers(source: Path) -> list[Path]:
+    """Headers that `source` includes with quotes from its own directory,
+    and the headers they include in turn, each once, in include order."""
+    seen: list[Path] = []
+    todo = [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            hdr = (source.parent / name.decode()).resolve()
+            if hdr.is_file() and hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
 def _lib_path(source: Path) -> Path:
+    """Library path named after the hash of the source, every local header
+    it includes and the flags, so editing a shared header rebuilds every
+    library that includes it."""
     h = hashlib.sha256(source.read_bytes())
+    for hdr in _local_headers(source):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

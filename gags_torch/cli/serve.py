@@ -11,7 +11,8 @@ Endpoints (JSON in, JSON out; images as base64 PNG):
 
 Requests are serialised through one device lock. The scene, its
 activations and the decoder live on the device for the life of the
-server. PNGs are encoded with zlib and struct from the standard library.
+server. PNGs are encoded with zlib and struct from the standard library
+(utils/image.encode_png).
 
 Run: python -m gags_torch.cli.serve -m <model_path> [--iteration N]
 The model directory holds point_cloud/iteration_N/point_cloud.ply (with
@@ -24,10 +25,8 @@ import argparse
 import base64
 import json
 import os
-import struct
 import threading
 import time
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -43,25 +42,7 @@ from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig
 from gags_torch.splat.render import render
 from gags_torch.utils.colormaps import apply_pca_colormap, turbo
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    crc = zlib.crc32(tag + data) & 0xFFFFFFFF
-    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
-
-
-def encode_png(img01: np.ndarray) -> bytes:
-    """(H, W, 3) floats in [0, 1] → 8-bit RGB PNG bytes."""
-    a = (np.clip(img01, 0, 1) * 255).astype(np.uint8)
-    h, w = a.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
-    return (
-        b"\x89PNG\r\n\x1a\n"
-        + _png_chunk(b"IHDR", ihdr)
-        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
-        + _png_chunk(b"IEND", b"")
-    )
+from gags_torch.utils.image import encode_png
 
 
 def _png_b64(img01: np.ndarray) -> str:
@@ -82,7 +63,7 @@ class SceneServer:
         self.scene = scene.to(self.device)
         self.decoder = decoder.to(self.device).eval()
         self.text = text_embeds  # (labels, pos (L, D), neg (Ln, D)) or None
-        self.raster = raster or RasterizeConfig()
+        self.raster = raster or RasterizeConfig(aligned=False)
         self.lock = threading.Lock()
         self._resolutions: list[tuple[int, int]] = []
         self._geo = dict(

@@ -89,3 +89,15 @@ class Camera:
         return dataclasses.replace(
             self, viewmat=self.viewmat.to(device), K=self.K.to(device)
         )
+
+    @staticmethod
+    def from_colmap(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
+                    width: int, height: int, name: str = "", znear: float = 0.01,
+                    zfar: float = 100.0) -> "Camera":
+        """Camera from a camera-to-world rotation R, the COLMAP translation
+        t and the fields of view (tensors on the CPU)."""
+        return Camera(
+            viewmat=torch.as_tensor(world_to_view(R, t)),
+            K=torch.as_tensor(intrinsics_from_fov(fovx, fovy, width, height)),
+            width=int(width), height=int(height), znear=znear, zfar=zfar, name=name,
+        )

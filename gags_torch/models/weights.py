@@ -1,7 +1,8 @@
 """Carry parameters into the port: flax decoder parameters (as numpy
 arrays) → torch state dicts, raw Gaussian arrays → GaussianScene
-(`scene_from_arrays`, defined beside GaussianScene), and the
-`decoders.pt` file that `cli.serve.load_server` reads."""
+(`scene_from_arrays`, defined beside GaussianScene), a JAX GAD train
+state → the port's (`load_jax_train_state`), and the `decoders.pt` file
+that `cli.serve.load_server` reads."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from gags_torch.scene.gaussian_data import scene_from_arrays
 
 __all__ = ["decoder_state_from_flax", "scene_from_arrays", "save_decoders",
-           "load_decoder_state"]
+           "load_decoder_state", "load_jax_train_state"]
 
 
 def decoder_state_from_flax(params: Mapping[str, Mapping[str, np.ndarray]]) -> dict:
@@ -42,3 +43,40 @@ def save_decoders(path: str, feature_decoder: torch.nn.Module,
 def load_decoder_state(path: str) -> dict:
     """Read `decoders.pt` (tensors only) and return its dict of state dicts."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+
+def load_jax_train_state(state, *, features, decoder_params, scale_params,
+                         opt_states: Optional[Mapping[str, tuple]] = None,
+                         step: Optional[int] = None):
+    """Carry a JAX GAD TrainState (as numpy arrays) into the port's
+    `gad.train.TrainState`, in place: the features, the flax parameter
+    trees of both decoders and, optionally, the optax Adam states given as
+    {"feat" | "dec" | "scale": (count, mu, nu)}, where mu and nu are the
+    features array or flax-shaped trees (kernels are transposed like the
+    parameters). Returns `state`."""
+    dev = state.features.device
+    with torch.no_grad():
+        state.features.copy_(torch.as_tensor(np.asarray(features, np.float32)).to(dev))
+    state.decoder.load_state_dict(decoder_state_from_flax(decoder_params))
+    state.scale_decoder.load_state_dict(decoder_state_from_flax(scale_params))
+    groups = {
+        "feat": (state.opt_feat, {"": state.features}),
+        "dec": (state.opt_dec, dict(state.decoder.named_parameters())),
+        "scale": (state.opt_scale, dict(state.scale_decoder.named_parameters())),
+    }
+    for key, (count, mu, nu) in (opt_states or {}).items():
+        opt, params = groups[key]
+        if key != "feat":
+            mu, nu = decoder_state_from_flax(mu), decoder_state_from_flax(nu)
+        for name, p in params.items():
+            m = mu if name == "" else mu[name]
+            v = nu if name == "" else nu[name]
+            opt.state[p] = {
+                "step": torch.tensor(float(np.asarray(count))),
+                "exp_avg": torch.as_tensor(np.asarray(m, np.float32)).to(dev).clone(),
+                "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32)).to(dev).clone(),
+            }
+    if step is not None:
+        state.step = int(step)
+    return state

@@ -39,6 +39,9 @@ class GaussianScene:
     def scales(self) -> torch.Tensor:
         return torch.exp(self.scales_raw)
 
+    def with_features(self, features: torch.Tensor) -> "GaussianScene":
+        return dataclasses.replace(self, semantic_features=features)
+
     def to(self, device) -> "GaussianScene":
         moved = {
             f.name: getattr(self, f.name).to(device)

@@ -237,3 +237,32 @@ def write_gaussian_ply(
         for i in range(semantic_features.shape[1]):
             fields[f"semantic_{i}"] = semantic_features[:, i].astype(np.float32)
     write_ply(path, fields, comment="gags gaussian checkpoint")
+
+
+def read_points3d_ply(path: str):
+    """Read an SfM seed cloud (points3D.ply): xyz + rgb (+normals)."""
+    v = read_ply(path)
+    xyz = np.stack([v["x"], v["y"], v["z"]], 1).astype(np.float32)
+    if "red" in v:
+        rgb = np.stack([v["red"], v["green"], v["blue"]], 1).astype(np.float32) / 255.0
+    else:
+        rgb = np.full_like(xyz, 0.5)
+    if "nx" in v:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], 1).astype(np.float32)
+    else:
+        normals = np.zeros_like(xyz)
+    return xyz, rgb, normals
+
+
+def write_points3d_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    zeros = np.zeros(len(xyz), np.float32)
+    fields = {
+        "x": xyz[:, 0].astype(np.float32),
+        "y": xyz[:, 1].astype(np.float32),
+        "z": xyz[:, 2].astype(np.float32),
+        "nx": zeros, "ny": zeros, "nz": zeros,
+        "red": (np.clip(rgb[:, 0], 0, 1) * 255).astype(np.uint8),
+        "green": (np.clip(rgb[:, 1], 0, 1) * 255).astype(np.uint8),
+        "blue": (np.clip(rgb[:, 2], 0, 1) * 255).astype(np.uint8),
+    }
+    write_ply(path, fields)

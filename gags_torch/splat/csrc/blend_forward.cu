@@ -1,16 +1,20 @@
-// blend_forward: front-to-back alpha composite of each tile's unaligned,
-// depth-sorted instance range (the inference blend).
+// blend_forward: front-to-back alpha composite of each tile's depth-sorted
+// instance range. Two entry points share one kernel body:
+//   gags_blend_forward          K5, the inference blend over unaligned ranges;
+//   gags_blend_forward_aligned  K1, the training blend over chunk-aligned
+//                               ranges (zero-opacity dummies pad each range).
 //
-// Replaces the TPU kernel gags_tpu/splat/pallas_kernel.py:
-// tile_blend_forward_fast (body _forward_fast_kernel). Same contract:
-// output (T, P, C+1) float32, C channels with the background blended
-// against the final transmittance, then alpha = 1 - T_final. Per pixel
-// centre (x + 0.5, y + 0.5) and instance, in depth order:
-//   sigma = 0.5 (ca dx^2 + cc dy^2) + cb dx dy
-//   alpha = min(0.999, opac exp(-sigma)); skipped if sigma < 0 or
-//           alpha < 1/255
-//   a splat with T (1 - alpha) < 1e-4 is not blended and ends the pixel;
-//   otherwise w = alpha T is blended and T *= 1 - alpha.
+// Replaces the TPU kernels gags_tpu/splat/pallas_kernel.py:
+// tile_blend_forward_fast (body _forward_fast_kernel; K5) and
+// tile_blend_forward (body _forward_kernel; K1). Same contract: output
+// (T, P, C+1) float32, C channels with the background blended against the
+// final transmittance, then alpha = 1 - T_final. The per-pair arithmetic
+// (sigma, alpha, the 1/255 floor, the 1e-4 stop, the weight) lives in
+// blend_common.cuh, which blend_backward.cu (K2) shares, so the backward
+// retraces exactly the splats this kernel blended. An aligned range is an
+// unaligned range that happens to start on a chunk: K1 walks
+// [start, start + count) of the real instances, and the dummies after them
+// (rank n, the zero row) would blend as no-ops anyway.
 //
 // Inputs are the rank-permuted tables the rasterizer builds: geometry
 // (N+1, 8) [mx, my, ca, cb, cc, opac, 0, 0] and colours (N+1, C), each
@@ -37,12 +41,11 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
-constexpr float kAlphaFloor = 1.0f / 255.0f;
-constexpr float kAlphaClamp = 0.999f;
-constexpr float kTEps = 1e-4f;
 
 template <int C>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -67,12 +70,8 @@ blend_forward_kernel(const float* __restrict__ geom,
   const int npix = tile_h * tile_w;
   const int p = blockIdx.y * blockDim.x + threadIdx.x;
   const bool in_tile = p < npix;
-  const int ty = tile / tiles_x;
-  const int tx = tile - ty * tiles_x;
-  const int row = p / tile_w;
-  const int col = p - row * tile_w;
-  const float px = static_cast<float>(tx * tile_w + col) + 0.5f;
-  const float py = static_cast<float>(ty * tile_h + row) + 0.5f;
+  float px, py;
+  gags::pixel_centre(tile, p, tiles_x, tile_h, tile_w, &px, &py);
   const int start = tile_starts[tile];
   const int count = tile_counts[tile];
 
@@ -102,19 +101,16 @@ blend_forward_kernel(const float* __restrict__ geom,
     const int nb = min(batch, count - b0);
     if (alive) {
       for (int k = 0; k < nb; ++k) {
-        const float dx = px - s_mx[k];
-        const float dy = py - s_my[k];
-        const float sigma =
-            0.5f * (s_ca[k] * dx * dx + s_cc[k] * dy * dy) + s_cb[k] * dx * dy;
-        if (sigma < 0.0f) continue;
-        const float alpha = fminf(kAlphaClamp, s_op[k] * expf(-sigma));
-        if (alpha < kAlphaFloor) continue;
-        const float next_t = T * (1.0f - alpha);
-        if (next_t < kTEps) {
+        const float alpha = gags::splat_alpha(px, py, s_mx[k], s_my[k],
+                                              s_ca[k], s_cb[k], s_cc[k],
+                                              s_op[k]);
+        if (alpha == 0.0f) continue;
+        const float next_t = gags::next_transmittance(T, alpha);
+        if (next_t < gags::kTEps) {
           alive = false;
           break;
         }
-        const float w = alpha * T;
+        const float w = gags::blend_weight(T, alpha);
 #pragma unroll
         for (int c = 0; c < C; ++c) acc[c] += w * s_col[k * C + c];
         T = next_t;
@@ -161,14 +157,14 @@ int gags_blend_forward_channels(int i) {
   return i < 8 ? kChannels[i] : 0;
 }
 
-// geom (R, 8) f32, colors (R, C) f32, inst_gid (M,) i32, tile_starts and
-// tile_counts (num_tiles,) i32, bg (C,) f32, out (num_tiles, P, C+1) f32.
-// Launches on `stream` and returns cudaGetLastError() of the launch.
-int gags_blend_forward(const void* geom, const void* colors,
-                       const void* inst_gid, const void* tile_starts,
-                       const void* tile_counts, const void* bg, void* out,
-                       int num_tiles, int tiles_x, int tile_h, int tile_w,
-                       int channels, void* stream) {
+}  // extern "C"
+
+namespace {
+
+int dispatch(const void* geom, const void* colors, const void* inst_gid,
+             const void* tile_starts, const void* tile_counts, const void* bg,
+             void* out, int num_tiles, int tiles_x, int tile_h, int tile_w,
+             int channels, void* stream) {
   if (num_tiles <= 0) return 0;
   auto g = static_cast<const float*>(geom);
   auto cl = static_cast<const float*>(colors);
@@ -195,6 +191,34 @@ int gags_blend_forward(const void* geom, const void* colors,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GAGS_CASE
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5. geom (R, 8) f32, colors (R, C) f32, inst_gid (M,) i32, tile_starts
+// and tile_counts (num_tiles,) i32, bg (C,) f32, out (num_tiles, P, C+1)
+// f32. Launches on `stream` and returns cudaGetLastError() of the launch.
+int gags_blend_forward(const void* geom, const void* colors,
+                       const void* inst_gid, const void* tile_starts,
+                       const void* tile_counts, const void* bg, void* out,
+                       int num_tiles, int tiles_x, int tile_h, int tile_w,
+                       int channels, void* stream) {
+  return dispatch(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
+                  num_tiles, tiles_x, tile_h, tile_w, channels, stream);
+}
+
+// K1, the same arguments over an aligned binning (chunk-aligned starts,
+// tile_counts = the real instances of each range).
+int gags_blend_forward_aligned(const void* geom, const void* colors,
+                               const void* inst_gid, const void* tile_starts,
+                               const void* tile_counts, const void* bg,
+                               void* out, int num_tiles, int tiles_x,
+                               int tile_h, int tile_w, int channels,
+                               void* stream) {
+  return dispatch(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
+                  num_tiles, tiles_x, tile_h, tile_w, channels, stream);
 }
 
 }  // extern "C"

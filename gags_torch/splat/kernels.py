@@ -1,5 +1,11 @@
-"""Wrappers of the splat kernels (K5 blend_forward, K6 expand_gid), each
-beside its plain PyTorch version.
+"""Wrappers of the splat kernels, each beside its plain PyTorch version:
+
+  K1 blend_forward_aligned  training composite over aligned tile ranges
+  K2 blend_backward         colour VJP of the blend, per instance
+  K3 sorted_segment_sum     per-instance rows summed per depth rank
+  K4 dense_segment_sum      per-segment sums of pixel rows (region losses)
+  K5 blend_forward          inference composite over unaligned ranges
+  K6 expand_gid             owning rank of every instance slot
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the hand-written CUDA kernel (``csrc/*.cu``, built with nvcc at
@@ -20,13 +26,24 @@ from gags_torch import _kernels
 CSRC = Path(__file__).resolve().parent / "csrc"
 EXPAND_GID_SRC = CSRC / "expand_gid.cu"
 BLEND_FORWARD_SRC = CSRC / "blend_forward.cu"
-SOURCES = (EXPAND_GID_SRC, BLEND_FORWARD_SRC)
+BLEND_BACKWARD_SRC = CSRC / "blend_backward.cu"
+SORTED_SEGMENT_SUM_SRC = CSRC / "sorted_segment_sum.cu"
+DENSE_SEGMENT_SUM_SRC = CSRC / "dense_segment_sum.cu"
+SOURCES = (EXPAND_GID_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC,
+           SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC)
 
 ALPHA_FLOOR = 1.0 / 255.0
 ALPHA_CLAMP = 0.999
 T_EPS = 1e-4
 
-launch_counts = {"expand_gid": 0, "blend_forward": 0}
+launch_counts = {
+    "blend_forward_aligned": 0,
+    "blend_backward": 0,
+    "sorted_segment_sum": 0,
+    "dense_segment_sum": 0,
+    "blend_forward": 0,
+    "expand_gid": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -112,31 +129,30 @@ def _pixel_centres(num_tiles, tiles_x, tile_h, tile_w, device):
     return px, py
 
 
-def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
-                        tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
-    """The composite of `blend_forward`, vectorised over all tiles and pixels
-    and walking the instance index of every tile range in lock step.
+def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
+                 tile_h, tile_w, pairs=None):
+    """The front-to-back walk of the plain blends, vectorised over all
+    tiles and pixels, taking the instance index k of every range in lock
+    step. Yields, per k, the tiles whose range holds k (T,), the slot
+    positions (T,), the blend weights w (T, P) (alpha T where the splat
+    blends, else 0) and the transmittance after it (T, P).
 
-    With return_pairs, also returns the (pixel, instance) pairs this data
-    needs evaluated (each pixel up to the splat that ends it) and the
-    pairs blended, as ints: the work a roofline bound of K5 counts."""
+    `pairs`, a list [walked, blended], accumulates the (pixel, instance)
+    pairs this data needs evaluated (each pixel up to the splat that ends
+    it) and the pairs blended: the work a roofline bound counts."""
     num_tiles = tiles_x * tiles_y
-    c = colors.shape[1]
     dev = geom.device
     px, py = _pixel_centres(num_tiles, tiles_x, tile_h, tile_w, dev)
     T = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
-    acc = torch.zeros(px.shape + (c,), dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     max_count = int(tile_counts.max()) if num_tiles else 0
     starts = tile_starts.long()
     counts = tile_counts.long()
-    walked = torch.zeros((), dtype=torch.int64, device=dev)
-    blended = torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(max_count):
         inr = k < counts
-        g = inst_gid[torch.where(inr, starts + k, 0)].long()
-        rows = geom[g]  # (T, 8)
+        pos = torch.where(inr, starts + k, 0)
+        rows = geom[inst_gid[pos].long()]  # (T, 8)
         op = torch.where(inr, rows[:, 5], zero)[:, None]
         dx = px - rows[:, 0:1]
         dy = py - rows[:, 1:2]
@@ -148,33 +164,93 @@ def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
         kill = (alpha > 0.0) & (next_t < T_EPS)
         use = (alpha > 0.0) & ~done & ~kill
         w = torch.where(use, alpha * T, zero)
-        if return_pairs:
-            walked += (inr[:, None] & ~done).sum()
-            blended += use.sum()
-        acc += w[..., None] * colors[g][:, None, :]
+        if pairs is not None:  # device sums: no host sync inside the walk
+            pairs[0] = pairs[0] + (inr[:, None] & ~done).sum()
+            pairs[1] = pairs[1] + use.sum()
         T = torch.where(use, next_t, T)
         done |= kill
+        yield inr, pos, w, T
+
+
+def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
+                        tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
+    """The composite of `blend_forward` (and `blend_forward_aligned`).
+    With return_pairs, also returns the pairs walked and blended, as ints
+    (see `_walk_ranges`)."""
+    c = colors.shape[1]
+    npix = tile_h * tile_w
+    acc = torch.zeros((tiles_x * tiles_y, npix, c), dtype=torch.float32, device=geom.device)
+    T = torch.ones(acc.shape[:2], dtype=torch.float32, device=geom.device)
+    pairs = [0, 0]
+    for _, pos, w, T in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
+                                     tiles_y, tile_h, tile_w, pairs if return_pairs else None):
+        acc += w[..., None] * colors[inst_gid[pos].long()][:, None, :]
     img = acc + T[..., None] * bg.reshape(1, 1, c)
     out = torch.cat([img, (1.0 - T)[..., None]], dim=-1)
     if return_pairs:
-        return out, int(walked), int(blended)
+        return out, int(pairs[0]), int(pairs[1])
     return out
 
 
-def _compiled_channels(lib) -> list[int]:
-    """The channel counts the library instantiates, ascending."""
-    fn = lib.gags_blend_forward_channels
+def _padded_channels(lib, query: str, c: int, what: str) -> int:
+    """The smallest channel count >= c that the library instantiates
+    (`query(i)` returns the i-th, ascending, then 0)."""
+    fn = getattr(lib, query)
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
     chans = []
     while (ch := fn(len(chans))) > 0:
         chans.append(ch)
-    return chans
+    cp = next((ch for ch in chans if ch >= c), None)
+    if cp is None:
+        raise ValueError(f"{what}: {c} channels exceed {chans[-1]}")
+    return cp
+
+
+def _check_ranges(tile_starts, tile_counts, num_tiles, dev):
+    _check_tensor("tile_starts", tile_starts, torch.int32, dev, ndim=1)
+    _check_tensor("tile_counts", tile_counts, torch.int32, dev, ndim=1)
+    if tile_starts.shape[0] != num_tiles or tile_counts.shape[0] != num_tiles:
+        raise ValueError("tile_starts/tile_counts: one entry per tile")
+
+
+def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
+                          tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w):
+    dev = geom.device
+    num_tiles = tiles_x * tiles_y
+    _check_tensor("geom", geom, torch.float32, dev, ndim=2)
+    _check_tensor("colors", colors, torch.float32, dev, ndim=2)
+    _check_tensor("inst_gid", inst_gid, torch.int32, dev, ndim=1)
+    _check_tensor("bg", bg, torch.float32, dev, ndim=1)
+    _check_ranges(tile_starts, tile_counts, num_tiles, dev)
+    r, c = colors.shape
+    if geom.shape != (r, 8):
+        raise ValueError(f"geom: expected ({r}, 8), got {tuple(geom.shape)}")
+    if bg.shape[0] != c:
+        raise ValueError(f"bg: expected ({c},), got {tuple(bg.shape)}")
+    lib = _kernels.load(BLEND_FORWARD_SRC)
+    cp = _padded_channels(lib, "gags_blend_forward_channels", c, key)
+    if cp != c:  # zero channels up to a compiled count, sliced off below
+        colors = torch.nn.functional.pad(colors, (0, cp - c)).contiguous()
+        bg = torch.nn.functional.pad(bg, (0, cp - c)).contiguous()
+    npix = tile_h * tile_w
+    out = torch.empty((num_tiles, npix, cp + 1), dtype=torch.float32, device=dev)
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts),
+             _ptr(tile_counts), _ptr(bg), _ptr(out), num_tiles, tiles_x,
+             tile_h, tile_w, cp, _stream(geom))
+    _kernels.check(lib, err, key)
+    launch_counts[key] += 1
+    if cp != c:
+        out = torch.cat([out[..., :c], out[..., cp:]], dim=-1)
+    return out
 
 
 def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
                   tiles_x, tiles_y, tile_h, tile_w):
-    """Front-to-back composite over unaligned per-tile ranges.
+    """K5: front-to-back composite over unaligned per-tile ranges.
 
     geom (R, 8) f32 and colors (R, C) f32 are rank-permuted tables with a
     zero sentinel row, inst_gid (M,) i32 holds ranks, tile_starts and
@@ -185,41 +261,179 @@ def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
         return blend_forward_plain(geom, colors, inst_gid, tile_starts,
                                    tile_counts, bg, tiles_x, tiles_y, tile_h,
                                    tile_w)
+    return _launch_blend_forward(
+        "gags_blend_forward", "blend_forward", geom, colors, inst_gid,
+        tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w)
+
+
+# --------------------------------------------------------------------------
+# K1: blend_forward_aligned
+# --------------------------------------------------------------------------
+
+
+def blend_forward_aligned(geom, colors, inst_gid, tile_starts, tile_counts, bg,
+                          tiles_x, tiles_y, tile_h, tile_w):
+    """K1: the composite of `blend_forward` over an ALIGNED binning (the
+    training layout: chunk-aligned starts, tile_counts = the real
+    instances of each range, zero-opacity dummies after them). Same
+    arguments and output; its plain version is `blend_forward_plain`."""
+    if not _dispatch(geom):
+        return blend_forward_plain(geom, colors, inst_gid, tile_starts,
+                                   tile_counts, bg, tiles_x, tiles_y, tile_h,
+                                   tile_w)
+    return _launch_blend_forward(
+        "gags_blend_forward_aligned", "blend_forward_aligned", geom, colors,
+        inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w)
+
+
+# --------------------------------------------------------------------------
+# K2: blend_backward
+# --------------------------------------------------------------------------
+
+
+def blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
+                         tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
+    """The colour VJP of `blend_backward`: grad[j] = sum_p w[p, j] g[p] for
+    every instance slot j of a range, zero elsewhere. With return_pairs,
+    also returns the pairs walked and blended (see `_walk_ranges`)."""
+    grad = torch.zeros((inst_gid.shape[0], g.shape[-1]), dtype=torch.float32,
+                       device=geom.device)
+    pairs = [0, 0]
+    for inr, pos, w, _ in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
+                                       tiles_y, tile_h, tile_w, pairs if return_pairs else None):
+        grad[pos[inr]] = torch.einsum("tp,tpc->tc", w, g)[inr]
+    if return_pairs:
+        return grad, int(pairs[0]), int(pairs[1])
+    return grad
+
+
+def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
+                   tiles_x, tiles_y, tile_h, tile_w):
+    """K2: colour gradient of every instance slot of an aligned binning.
+
+    geom (R, 8) f32 is the rank-permuted geometry table with its zero
+    sentinel row, inst_gid (M,) i32, tile_starts and tile_counts (T,) i32,
+    g (T, P, C) f32 the cotangent of the tile image's C channels. Returns
+    (M, C) f32: grad[j] = sum_p w[p, j] g[p], the blend weights recomputed
+    as the forward computed them; rows outside every range are zero.
+    """
+    if not _dispatch(geom):
+        return blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
+                                    tiles_x, tiles_y, tile_h, tile_w)
     dev = geom.device
     num_tiles = tiles_x * tiles_y
-    _check_tensor("geom", geom, torch.float32, dev, ndim=2)
-    _check_tensor("colors", colors, torch.float32, dev, ndim=2)
-    _check_tensor("inst_gid", inst_gid, torch.int32, dev, ndim=1)
-    _check_tensor("tile_starts", tile_starts, torch.int32, dev, ndim=1)
-    _check_tensor("tile_counts", tile_counts, torch.int32, dev, ndim=1)
-    _check_tensor("bg", bg, torch.float32, dev, ndim=1)
-    r, c = colors.shape
-    if geom.shape != (r, 8):
-        raise ValueError(f"geom: expected ({r}, 8), got {tuple(geom.shape)}")
-    if bg.shape[0] != c:
-        raise ValueError(f"bg: expected ({c},), got {tuple(bg.shape)}")
-    if tile_starts.shape[0] != num_tiles or tile_counts.shape[0] != num_tiles:
-        raise ValueError("tile_starts/tile_counts: one entry per tile")
-    lib = _kernels.load(BLEND_FORWARD_SRC)
-    chans = _compiled_channels(lib)
-    cp = next((ch for ch in chans if ch >= c), None)
-    if cp is None:
-        raise ValueError(f"blend_forward: {c} channels exceed {chans[-1]}")
-    if cp != c:  # zero channels up to a compiled count, sliced off below
-        colors = torch.nn.functional.pad(colors, (0, cp - c)).contiguous()
-        bg = torch.nn.functional.pad(bg, (0, cp - c)).contiguous()
     npix = tile_h * tile_w
-    out = torch.empty((num_tiles, npix, cp + 1), dtype=torch.float32, device=dev)
-    fn = lib.gags_blend_forward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts),
-             _ptr(tile_counts), _ptr(bg), _ptr(out), num_tiles, tiles_x,
-             tile_h, tile_w, cp, _stream(geom))
-    _kernels.check(lib, err, "blend_forward")
-    launch_counts["blend_forward"] += 1
+    _check_tensor("geom", geom, torch.float32, dev, ndim=2)
+    _check_tensor("inst_gid", inst_gid, torch.int32, dev, ndim=1)
+    _check_tensor("g", g, torch.float32, dev, ndim=3)
+    _check_ranges(tile_starts, tile_counts, num_tiles, dev)
+    if geom.shape[1] != 8:
+        raise ValueError(f"geom: expected (R, 8), got {tuple(geom.shape)}")
+    c = g.shape[2]
+    if g.shape[:2] != (num_tiles, npix):
+        raise ValueError(f"g: expected ({num_tiles}, {npix}, C), got {tuple(g.shape)}")
+    lib = _kernels.load(BLEND_BACKWARD_SRC)
+    cp = _padded_channels(lib, "gags_blend_backward_channels", c, "blend_backward")
     if cp != c:
-        out = torch.cat([out[..., :c], out[..., cp:]], dim=-1)
+        g = torch.nn.functional.pad(g, (0, cp - c)).contiguous()
+    grad = torch.zeros((inst_gid.shape[0], cp), dtype=torch.float32, device=dev)
+    fn = lib.gags_blend_backward
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(geom), _ptr(inst_gid), _ptr(tile_starts), _ptr(tile_counts),
+             _ptr(g), _ptr(grad), num_tiles, tiles_x, tile_h, tile_w, cp,
+             _stream(geom))
+    _kernels.check(lib, err, "blend_backward")
+    launch_counts["blend_backward"] += 1
+    return grad[:, :c] if cp != c else grad
+
+
+# --------------------------------------------------------------------------
+# K3: sorted_segment_sum
+# --------------------------------------------------------------------------
+
+
+def sorted_segment_sum_plain(rows, slot_to_pos, slot_rank, chunk_block,
+                             num_ranks, chunk=128):
+    """out[b * chunk + r] = sum of rows[slot_to_pos[s]] over the slots s of
+    chunks with chunk_block == b and slot_rank[s] == r (-1 = padding)."""
+    m, c = rows.shape
+    ext = torch.cat([rows, torch.zeros((1, c), dtype=rows.dtype, device=rows.device)])
+    got = ext[slot_to_pos.long().clamp(0, m)]
+    block = chunk_block.long().repeat_interleave(chunk)
+    rank = block * chunk + slot_rank.long()
+    keep = slot_rank >= 0
+    nb = -(-num_ranks // chunk)
+    out = torch.zeros((nb * chunk, c), dtype=torch.float32, device=rows.device)
+    out.index_add_(0, rank[keep], got[keep])
+    return out[:num_ranks]
+
+
+def sorted_segment_sum(rows, slot_to_pos, slot_rank, chunk_block, num_ranks,
+                       chunk=128):
+    """K3: per-rank sums of instance rows over a `tiles.ReductionLayout`.
+
+    rows (M, C) f32, slot_to_pos and slot_rank (Mp,) i32, chunk_block
+    (Mp // chunk,) i32 non-decreasing. Returns (num_ranks, C) f32.
+    """
+    if not _dispatch(rows):
+        return sorted_segment_sum_plain(rows, slot_to_pos, slot_rank,
+                                        chunk_block, num_ranks, chunk)
+    dev = rows.device
+    _check_tensor("rows", rows, torch.float32, dev, ndim=2)
+    _check_tensor("slot_to_pos", slot_to_pos, torch.int32, dev, ndim=1)
+    _check_tensor("slot_rank", slot_rank, torch.int32, dev, ndim=1)
+    _check_tensor("chunk_block", chunk_block, torch.int32, dev, ndim=1)
+    nc = chunk_block.shape[0]
+    if slot_to_pos.shape[0] != nc * chunk or slot_rank.shape[0] != nc * chunk:
+        raise ValueError("slot_to_pos/slot_rank: chunk slots per chunk_block entry")
+    c = rows.shape[1]
+    out = torch.empty((num_ranks, c), dtype=torch.float32, device=dev)
+    lib = _kernels.load(SORTED_SEGMENT_SUM_SRC)
+    fn = lib.gags_sorted_segment_sum
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(rows), _ptr(slot_to_pos), _ptr(slot_rank), _ptr(chunk_block),
+             _ptr(out), nc, chunk, c, num_ranks, _stream(rows))
+    _kernels.check(lib, err, "sorted_segment_sum")
+    launch_counts["sorted_segment_sum"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# K4: dense_segment_sum
+# --------------------------------------------------------------------------
+
+
+def dense_segment_sum_plain(values, ids, num_segments):
+    """out[s] = sum of values[p] over ids[p] == s; ids outside
+    [0, num_segments) drop out."""
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros((num_segments, values.shape[1]), dtype=values.dtype,
+                      device=values.device)
+    out.index_add_(0, ids[keep].long(), values[keep])
+    return out
+
+
+def dense_segment_sum(values, ids, num_segments):
+    """K4: per-segment sums of (P, C) f32 rows by (P,) i32 ids, for any
+    segment count. Returns (num_segments, C) f32."""
+    if not _dispatch(values):
+        return dense_segment_sum_plain(values, ids, num_segments)
+    dev = values.device
+    _check_tensor("values", values, torch.float32, dev, ndim=2)
+    _check_tensor("ids", ids, torch.int32, dev, ndim=1)
+    p, c = values.shape
+    if ids.shape[0] != p:
+        raise ValueError(f"ids: expected ({p},), got {tuple(ids.shape)}")
+    out = torch.zeros((num_segments, c), dtype=torch.float32, device=dev)
+    lib = _kernels.load(DENSE_SEGMENT_SUM_SRC)
+    fn = lib.gags_dense_segment_sum
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(values), _ptr(ids), _ptr(out), p, c, num_segments, _stream(values))
+    _kernels.check(lib, err, "dense_segment_sum")
+    launch_counts["dense_segment_sum"] += 1
     return out
 
 

@@ -1,13 +1,18 @@
-"""Inference rasterizer: project → bin (unaligned) → blend. Port of the
-forward-only path of gags_tpu.splat.rasterizer.
+"""Rasterizer: project → bin → blend, differentiable with respect to the
+colours (port of gags_tpu.splat.rasterizer).
 
-`rasterize` projects the Gaussians, bins them with the unaligned binning
-(kernel K6), permutes the geometry and colour tables into depth-rank
-order, and blends each tile's range with kernel K5. Only the fields the
-serving path reads are ported: the TPU-only switches of the JAX config
+`rasterize` projects the Gaussians, bins them, permutes the geometry and
+colour tables into depth-rank order and blends each tile's range. The
+aligned (training) binning blends with kernel K1 and carries a gradient:
+`_Blend`'s backward runs K2 (the per-instance colour VJP) and then K3
+(the per-rank sum over the binning's ReductionLayout). The unaligned
+(inference) binning blends with K5 and refuses a backward, as in JAX.
+`prepare_binning` + `rasterize_binned` split the same path for GAD
+training, where the geometry is frozen and each camera's binning is
+computed once. Geometry never receives a gradient here (K8, the full
+VJP, belongs to RGB pretraining); the TPU-only switches of the JAX config
 (mxu_sigma, p_block, soa_geom, image_chw, fast_color_rows, blend_bf16,
-block_exit, fused_keys, tile_cull) are absent, and training
-(aligned binning, gradients) is not part of this module yet.
+block_exit, fused_keys, tile_cull) are absent.
 """
 
 from __future__ import annotations
@@ -29,11 +34,17 @@ class RasterizeConfig:
     chunk: int = 128  # tail padding of the instance list (JAX layout parity)
     budget_factor: float = 4.0  # instance budget = factor * N
     budget: Optional[int] = None  # explicit override
-    # forward-only unaligned binning; the aligned (training) layout is not
-    # ported yet
-    aligned: bool = False
+    # full VJP to means / quats / scales / opacities (kernel K8, RGB
+    # pretraining): not ported yet, raises
+    geometry_grads: bool = False
+    # chunk-aligned per-tile ranges with dummy padding: required for any
+    # backward; inference passes aligned=False (K5, no SAT or dummies)
+    aligned: bool = True
     # shrink binning rects to each splat's alpha-floor contour (image-exact)
     opacity_extents: bool = True
+    # training forward on the inference kernel (K5) over the aligned
+    # ranges; the colour gradient is the same either way
+    fast_fwd_aligned: bool = False
 
     def instance_budget(self, n: int) -> int:
         if self.budget is not None:
@@ -75,10 +86,16 @@ def order_ext(order: torch.Tensor) -> torch.Tensor:
     return torch.cat([order, torch.full((1,), n, dtype=order.dtype, device=order.device)])
 
 
+def _image_to_tiles(img, tiles_x, tiles_y, tile_h, tile_w):
+    """(H, W, C) → (T, P, C), zero-padding to the tile grid."""
+    h, w, c = img.shape
+    img = torch.nn.functional.pad(img, (0, 0, 0, tiles_x * tile_w - w, 0, tiles_y * tile_h - h))
+    img = img.reshape(tiles_y, tile_h, tiles_x, tile_w, c).permute(0, 2, 1, 3, 4)
+    return img.reshape(tiles_x * tiles_y, tile_h * tile_w, c)
+
+
 def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg):
     """Project + bin + geometry table. No colour dependence."""
-    if cfg.aligned:
-        raise NotImplementedError("aligned (training) binning is not ported yet")
     tiles_x = -(-width // cfg.tile_w)
     tiles_y = -(-height // cfg.tile_h)
     n = means.shape[0]
@@ -89,12 +106,150 @@ def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg):
     binned = tiles.bin_gaussians(
         proj.means2d, proj.radii_x, proj.depths, width, height,
         cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(n),
-        chunk=cfg.chunk, radii_y=proj.radii_y,
+        chunk=cfg.chunk, radii_y=proj.radii_y, aligned=cfg.aligned,
     )
     return proj, binned, _geom_table(proj, opacities), tiles_x, tiles_y
 
 
+def _inverse_order(order: torch.Tensor) -> torch.Tensor:
+    """inv[order[r]] = r."""
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(order.shape[0], dtype=order.dtype, device=order.device)
+    return inv
+
+
+class _PermuteRows(torch.autograd.Function):
+    """y = x[perm] whose backward is the gather dx = dy[inv_perm] (the
+    permutation is a bijection), not a scatter."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_perm,) = ctx.saved_tensors
+        return g[inv_perm.long()], None, None
+
+
+def permute_rows(x, perm, inv_perm):
+    return _PermuteRows.apply(x, perm, inv_perm)
+
+
+class _Blend(torch.autograd.Function):
+    """Tile blend of rank-ordered colours (N, C), differentiable with
+    respect to the colours only; the background is a constant.
+
+    Forward: K1 on an aligned binning (K5 under cfg.fast_fwd_aligned or on
+    an unaligned binning). Backward: K2 gives each instance slot its colour
+    gradient, K3 sums the slots of each rank over the binning's
+    ReductionLayout. Returns the tile image (T, P, C) and alpha (T, P, 1).
+    """
+
+    @staticmethod
+    def forward(ctx, colors, geom, inst_gid, tile_starts, tile_counts,
+                red_slot, red_rank, red_block, bg, tiles_x, tiles_y, cfg):
+        n, c = colors.shape
+        table = torch.cat([colors, colors.new_zeros((1, c))]).contiguous()
+        blend = (kernels.blend_forward_aligned
+                 if cfg.aligned and not cfg.fast_fwd_aligned else kernels.blend_forward)
+        out = blend(geom, table, inst_gid, tile_starts, tile_counts, bg,
+                    tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
+        ctx.save_for_backward(geom, inst_gid, tile_starts, tile_counts,
+                              red_slot, red_rank, red_block)
+        ctx.grid = (tiles_x, tiles_y)
+        ctx.cfg = cfg
+        ctx.n = n
+        img, alpha = out[..., :c].contiguous(), out[..., c:].contiguous()
+        ctx.mark_non_differentiable(alpha)
+        return img, alpha
+
+    @staticmethod
+    def backward(ctx, g_img, _g_alpha):  # alpha has no colour dependence
+        cfg = ctx.cfg
+        if not cfg.aligned:
+            raise ValueError(
+                "backward through the blend requires aligned binning "
+                "(RasterizeConfig.aligned=True): the unaligned layout has no "
+                "gradient-reduction layout")
+        geom, inst_gid, starts, counts, red_slot, red_rank, red_block = ctx.saved_tensors
+        tiles_x, tiles_y = ctx.grid
+        grad_inst = kernels.blend_backward(
+            geom, inst_gid, starts, counts, g_img.contiguous(),
+            tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
+        # the n real ranks only: the sentinel rank n (dummies and fillers,
+        # zero rows) is never summed
+        grad = kernels.sorted_segment_sum(
+            grad_inst, red_slot, red_rank, red_block, num_ranks=ctx.n)
+        return (grad,) + (None,) * 11
+
+
+def _blend(colors_p, geom_p, inst_gid, tile_starts, tile_counts, red, bg, tiles_x,
+           tiles_y, cfg):
+    """_Blend over a binning; `red` is None for unaligned binnings, whose
+    backward raises before it would be read."""
+    red_arrays = (None, None, None) if red is None else tuple(red)
+    return _Blend.apply(colors_p, geom_p, inst_gid, tile_starts, tile_counts, *red_arrays,
+                        bg, tiles_x, tiles_y, cfg)
+
+
+def _check_config(cfg: RasterizeConfig) -> None:
+    if cfg.geometry_grads:
+        raise NotImplementedError(
+            "geometry_grads (the full VJP, kernel K8) is not ported yet")
+
+
 @torch.no_grad()
+def prepare_binning(means, quats, scales, viewmat, K, width: int, height: int,
+                    config: RasterizeConfig = RasterizeConfig(),
+                    opacities=None) -> tiles.BinnedInstances:
+    """The sorted instance list of one (frozen geometry, camera) pair: the
+    sort-dominated part of rasterization, computed once per camera by the
+    GAD trainer and reused for every step. Runs on the inputs' device."""
+    proj = project_gaussians(
+        means, quats, scales, viewmat, K, width, height,
+        opacities=opacities if config.opacity_extents else None,
+    )
+    return tiles.bin_gaussians(
+        proj.means2d, proj.radii_x, proj.depths, width, height,
+        config.tile_w, config.tile_h, budget=config.instance_budget(means.shape[0]),
+        chunk=config.chunk, radii_y=proj.radii_y, aligned=config.aligned,
+    )
+
+
+def rasterize_binned(means, quats, scales, opacities, colors, viewmat, K,
+                     inst_gid, tile_starts, tile_counts, width: int, height: int,
+                     background: Optional[torch.Tensor] = None,
+                     config: RasterizeConfig = RasterizeConfig(), *,
+                     order, red_slot, red_rank, red_block):
+    """Re-project (cheap) and blend with a cached binning (`prepare_binning`).
+
+    `order` is the cached `BinnedInstances.order`: inst_gid holds depth
+    ranks, so the tables are permuted into rank order here. `red_*` is the
+    cached `BinnedInstances.red`. Differentiable with respect to `colors`.
+    Runs on the inputs' device. Returns (image (H, W, C), alpha (H, W)).
+    """
+    _check_config(config)
+    with torch.no_grad():
+        proj = project_gaussians(means, quats, scales, viewmat, K, width, height)
+        geom = _geom_table(proj, opacities)[order_ext(order.long())]
+        inv_order = _inverse_order(order)
+    tiles_x = -(-width // config.tile_w)
+    tiles_y = -(-height // config.tile_h)
+    colors_p = permute_rows(colors, order, inv_order)
+    if background is None:
+        background = torch.zeros((colors.shape[1],), dtype=torch.float32, device=colors.device)
+    tile_img, tile_alpha = _blend(colors_p, geom.contiguous(), inst_gid, tile_starts,
+                                  tile_counts, (red_slot, red_rank, red_block), background,
+                                  tiles_x, tiles_y, config)
+    img = _tiles_to_image(tile_img, tiles_x, tiles_y, config.tile_h, config.tile_w,
+                          height, width)
+    alpha = _tiles_to_image(tile_alpha, tiles_x, tiles_y, config.tile_h, config.tile_w,
+                            height, width)[..., 0]
+    return img, alpha
+
+
 def rasterize(
     means: torch.Tensor,
     quats: torch.Tensor,
@@ -113,35 +268,33 @@ def rasterize(
 
     Inputs are moved to `device` (default "cuda", which raises when CUDA
     is absent; tests pass "cpu", which runs the kernels' plain versions).
-    Forward only: no gradient flows.
+    The image is differentiable with respect to `colors` on an aligned
+    binning (the default); geometry receives no gradient.
     """
+    _check_config(config)
     dev = resolve_device(device)
 
     def f32(t):
         return t.to(device=dev, dtype=torch.float32).contiguous()
 
-    means, quats, scales, opacities, colors = map(
-        f32, (means, quats, scales, opacities, colors)
-    )
-    viewmat, K = f32(viewmat), f32(K)
-    proj, binned, geom, tiles_x, tiles_y = _prepare(
-        means, quats, scales, opacities, viewmat, K, width, height, config
-    )
+    colors = f32(colors)
+    with torch.no_grad():
+        means, quats, scales, opacities = map(f32, (means, quats, scales, opacities))
+        viewmat, K = f32(viewmat), f32(K)
+        proj, binned, geom, tiles_x, tiles_y = _prepare(
+            means, quats, scales, opacities, viewmat, K, width, height, config
+        )
+        # inst_gid holds depth ranks: permute both tables into rank order
+        geom_p = geom[order_ext(binned.order.long())].contiguous()
+        inv_order = _inverse_order(binned.order)
+    colors_p = permute_rows(colors, binned.order, inv_order)
     c = colors.shape[1]
-    # inst_gid holds depth ranks: permute both tables into rank order
-    perm = order_ext(binned.order.long())
-    geom_p = geom[perm].contiguous()
-    colors_p = torch.cat(
-        [colors, torch.zeros((1, c), dtype=torch.float32, device=dev)]
-    )[perm].contiguous()
     bg = torch.zeros((c,), dtype=torch.float32, device=dev) if background is None else f32(background)
-    out = kernels.blend_forward(
-        geom_p, colors_p, binned.inst_gid, binned.tile_starts,
-        binned.tile_counts, bg, tiles_x, tiles_y, config.tile_h, config.tile_w,
-    )
-    img = _tiles_to_image(out[..., :c], tiles_x, tiles_y, config.tile_h,
+    tile_img, tile_alpha = _blend(colors_p, geom_p, binned.inst_gid, binned.tile_starts,
+                                  binned.tile_counts, binned.red, bg, tiles_x, tiles_y, config)
+    img = _tiles_to_image(tile_img, tiles_x, tiles_y, config.tile_h,
                           config.tile_w, height, width)
-    alpha = _tiles_to_image(out[..., c:], tiles_x, tiles_y, config.tile_h,
+    alpha = _tiles_to_image(tile_alpha, tiles_x, tiles_y, config.tile_h,
                             config.tile_w, height, width)[..., 0]
     return RasterizeResult(
         image=img, alpha=alpha, radii=proj.radii, means2d=proj.means2d,

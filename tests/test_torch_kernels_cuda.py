@@ -38,7 +38,7 @@ def _inputs(dev, n, cdim, width=320, height=180, tile=(16, 16)):
     raw = make_scene(n, seed=1, extent=3.0, feature_dim=cdim)
     cam = make_camera(width, height, device=dev)
     t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
-    cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1])
+    cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1], aligned=False)
     _, binned, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"],
                                        t["opacities"], cam.viewmat, cam.K,
                                        width, height, cfg)
@@ -67,7 +67,108 @@ def test_rasterize_on_card_launches_both_kernels(dev):
     raw = make_scene(3000, seed=2, extent=3.0)
     cam = make_camera(256, 128, device=dev)
     res = rasterize(*(torch.as_tensor(raw[k]) for k in ("means", "quats", "scales", "opacities", "features")),
-                    cam.viewmat, cam.K, 256, 128, device=dev)
+                    cam.viewmat, cam.K, 256, 128, config=RasterizeConfig(aligned=False),
+                    device=dev)
     assert res.image.is_cuda and torch.isfinite(res.image).all()
     assert kernels.launch_counts["expand_gid"] == 1
     assert kernels.launch_counts["blend_forward"] == 1
+
+
+def _aligned_inputs(dev, n, cdim, width=320, height=180, tile=(16, 16), chunk=128):
+    raw = make_scene(n, seed=3, extent=3.0, feature_dim=cdim)
+    cam = make_camera(width, height, device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1], chunk=chunk)
+    _, binned, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"],
+                                       t["opacities"], cam.viewmat, cam.K,
+                                       width, height, cfg)
+    perm = order_ext(binned.order.long())
+    col = torch.cat([t["features"], torch.zeros((1, cdim), device=dev)])[perm].contiguous()
+    return binned, geom[perm].contiguous(), col, tx, ty
+
+
+@pytest.mark.parametrize("cdim,tile", [(16, (16, 16)), (16, (32, 32)), (3, (8, 16)), (5, (32, 32))])
+def test_blend_forward_aligned_matches_plain(dev, cdim, tile):
+    binned, geom, col, tx, ty = _aligned_inputs(dev, 4000, cdim, tile=tile)
+    bg = torch.linspace(0.1, 0.5, cdim, device=dev)
+    args = (geom, col, binned.inst_gid, binned.tile_starts, binned.tile_counts, bg,
+            tx, ty, tile[0], tile[1])
+    kernels.reset_launch_counts()
+    got = kernels.blend_forward_aligned(*args)
+    want = kernels.blend_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["blend_forward_aligned"] == 1
+    err = (got - want).abs()
+    assert float(err.mean()) <= 1e-5
+    assert float((err > 2e-5 + 1e-4 * want.abs()).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("cdim,tile", [(16, (16, 16)), (16, (32, 32)), (3, (8, 16)), (5, (32, 32))])
+def test_blend_backward_matches_plain(dev, cdim, tile):
+    binned, geom, _, tx, ty = _aligned_inputs(dev, 4000, cdim, tile=tile)
+    g = torch.as_tensor(np.random.default_rng(0).normal(size=(tx * ty, tile[0] * tile[1], cdim)),
+                        dtype=torch.float32, device=dev)
+    args = (geom, binned.inst_gid, binned.tile_starts, binned.tile_counts, g, tx, ty,
+            tile[0], tile[1])
+    got = kernels.blend_backward(*args)
+    want = kernels.blend_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs()
+    outside = err > 1e-6 + 1e-4 * want.abs()
+    # sums in another order (atomics) plus isolated threshold flips
+    assert float(outside.float().mean()) < 1e-3, float(err.max())
+    assert float(err.mean()) <= 1e-5
+
+
+def test_sorted_segment_sum_matches_plain(dev):
+    binned, _, _, _, _ = _aligned_inputs(dev, 20_000, 16, tile=(32, 32))
+    red = binned.red
+    m = binned.inst_gid.shape[0]
+    n = binned.order.shape[0]
+    rows = torch.as_tensor(np.random.default_rng(1).normal(size=(m, 16)), dtype=torch.float32,
+                           device=dev)
+    rows[binned.inst_gid == n] = 0.0  # dummies and fillers: K2 leaves them zero
+    got = kernels.sorted_segment_sum(rows, red.slot_to_pos, red.slot_rank, red.chunk_block, n + 1)
+    want = kernels.sorted_segment_sum_plain(rows, red.slot_to_pos, red.slot_rank,
+                                            red.chunk_block, n + 1)
+    lib = torch.zeros((n + 1, 16), device=dev).index_add_(0, binned.inst_gid.long(), rows)
+    torch.cuda.synchronize()
+    # a rank sums a few rows: only the order of those few additions differs
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, lib, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("segments,cdim", [(17, 2), (1025, 2), (1025, 33), (4097, 33), (40000, 3)])
+def test_dense_segment_sum_matches_plain(dev, segments, cdim):
+    rng = np.random.default_rng(segments)
+    p = 230_400
+    blocks = rng.integers(-1, segments + 2, size=p // 64)  # runs of 64 pixels, some out of range
+    ids = torch.as_tensor(np.repeat(blocks, 64).astype(np.int32), device=dev)
+    vals = torch.as_tensor(rng.normal(size=(p, cdim)), dtype=torch.float32, device=dev)
+    kernels.reset_launch_counts()
+    got = kernels.dense_segment_sum(vals, ids, segments)
+    want = kernels.dense_segment_sum_plain(vals.double(), ids, segments)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dense_segment_sum"] == 1
+    # float32 sums of up to ~14k unit normals, added by atomics in no fixed
+    # order, against a float64 sum: the rounding of the running sum grows
+    # with the count, so the bound is absolute
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=2e-3)
+
+
+def test_rasterize_gradient_on_card_matches_cpu(dev):
+    """The colour gradient through K1, K2 and K3 on the card equals the
+    plain versions' on the CPU."""
+    raw = make_scene(3000, seed=2, extent=3.0)
+    cfg = RasterizeConfig(tile_h=16, tile_w=16)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        cam = make_camera(128, 96, device=d)
+        cols = torch.as_tensor(raw["features"], device=d).requires_grad_(True)
+        res = rasterize(*(torch.as_tensor(raw[k], device=d) for k in ("means", "quats", "scales", "opacities")),
+                        cols, cam.viewmat, cam.K, 128, 96, config=cfg, device=d)
+        w = torch.linspace(-1, 1, res.image.numel(), device=d).reshape(res.image.shape)
+        (res.image * w).sum().backward()
+        grads[d.type] = cols.grad.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-4, atol=1e-5)

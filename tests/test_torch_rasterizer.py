@@ -54,7 +54,7 @@ def test_blend_plain_matches_pallas_fast_kernel(cdim, seed):
     sigma) and into the port's plain K5."""
     n = 150
     means, quats, scales, op, col, vm, K = _scene(n, seed, cdim)
-    cfg = RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6)
+    cfg = RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6, aligned=False)
     m, q, s, o, c, v, k = _t((means, quats, scales, op, col, vm, K))
     proj, binned, geom, tx, ty = _prepare(m, q, s, o, v, k, W, H, cfg)
     perm = order_ext(binned.order.long())
@@ -94,7 +94,7 @@ def test_rasterize_matches_jax_and_oracle(cdim, seed, with_bg):
         *map(jnp.asarray, (means, quats, scales, op, col, vm, K)),
         background=None if bg is None else jnp.asarray(bg),
     )
-    tcfg = RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6)
+    tcfg = RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6, aligned=False)
     rt = rasterize(*_t((means, quats, scales, op, col, vm, K)), W, H,
                    background=None if bg is None else torch.as_tensor(bg),
                    config=tcfg, device="cpu")
@@ -127,7 +127,7 @@ def test_rasterize_cpu_launches_no_kernel():
     means, quats, scales, op, col, vm, K = _scene(50, 5)
     rasterize(*_t((means, quats, scales, op, col, vm, K)), W, H,
               config=RasterizeConfig(tile_h=8, tile_w=16, chunk=8), device="cpu")
-    assert kernels.launch_counts == {"expand_gid": 0, "blend_forward": 0}
+    assert set(kernels.launch_counts.values()) == {0}
 
 
 @pytest.mark.parametrize("mode", ["override", "sh_ed", "features_bg"])
@@ -162,7 +162,8 @@ def test_render_modes_match_jax(mode):
     rt = render(tcam, means=torch.as_tensor(means), quats=torch.as_tensor(quats),
                 scales=torch.as_tensor(scales), opacities=torch.as_tensor(op),
                 bg_color=torch.as_tensor(bg), **tkw,
-                config=RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6),
+                config=RasterizeConfig(tile_h=8, tile_w=16, chunk=8, budget_factor=6,
+                                       aligned=False),
                 device="cpu")
     want, got = np.asarray(rj.render), rt.render.numpy()
     assert got.shape == want.shape

@@ -50,7 +50,8 @@ def _setup():
     pos = rng.normal(size=(2, 512)).astype(np.float32)
     neg = rng.normal(size=(3, 512)).astype(np.float32)
     text = (["thing", "other"], pos, neg)
-    srv = SceneServer(scene, dec, text_embeds=text, raster=RasterizeConfig(**TILE), device="cpu")
+    srv = SceneServer(scene, dec, text_embeds=text, raster=RasterizeConfig(**TILE, aligned=False),
+                      device="cpu")
     return raw, jdec, params, scene, srv, pos, neg
 
 

@@ -184,6 +184,14 @@ def sum_compare(got: torch.Tensor, want: torch.Tensor, abs_sum: torch.Tensor, wh
     return res
 
 
+def image_to_tiles(img, tiles_x, tiles_y, tile_h, tile_w):
+    """(H, W, C) → (T, P, C), zero-padding to the tile grid."""
+    h, w, c = img.shape
+    img = torch.nn.functional.pad(img, (0, 0, 0, tiles_x * tile_w - w, 0, tiles_y * tile_h - h))
+    img = img.reshape(tiles_y, tile_h, tiles_x, tile_w, c).permute(0, 2, 1, 3, 4)
+    return img.reshape(tiles_x * tiles_y, tile_h * tile_w, c)
+
+
 def write_train_fixture(root: str) -> str:
     """The training scene on disk, written with the port's own writers;
     returns the pretrained PLY's path."""
@@ -242,8 +250,8 @@ def train_phase(dev: torch.device, gpu: str) -> list:
     from gags_torch.scene.gaussian_data import GaussianScene
     from gags_torch.splat import kernels
     from gags_torch.splat.projection import project_gaussians
-    from gags_torch.splat.rasterizer import (_geom_table, _image_to_tiles, order_ext,
-                                             prepare_binning, rasterize_binned)
+    from gags_torch.splat.rasterizer import (_geom_table, order_ext, prepare_binning,
+                                             rasterize_binned)
 
     with tempfile.TemporaryDirectory() as tmp:
         root, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
@@ -325,7 +333,7 @@ def train_phase(dev: torch.device, gpu: str) -> list:
         l1, ent, regvar, _ = _supervision_losses(cfg, state.decoder, state.scale_decoder,
                                                  feat_map, batch)
         (l1 + 2e-3 * ent + 0.1 * regvar).backward()
-        g_tiles = _image_to_tiles(feat_map.grad, tx, ty, th, tw)
+        g_tiles = image_to_tiles(feat_map.grad, tx, ty, th, tw)
         # K2 is linear in g: scaled to max |g| = 1, atol 1e-6 means something
         g_tiles = (g_tiles / g_tiles.abs().max()).contiguous()
         with torch.no_grad():

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from gags_torch import resolve_device
 from gags_torch.gad import losses
 from gags_torch.gad.supervision import blend_gt_feature_map, fused_supervision_l1, mixed_seg_map
 from gags_torch.models.decoders import FeatureDecoder, ScaleDecoder
@@ -95,9 +96,12 @@ class TrainState:
 
 
 def create_train_state(scene: GaussianScene, cfg: GadConfig, seed: int = 0,
-                       device="cpu") -> TrainState:
+                       device="cuda") -> TrainState:
     """Features (the scene's, or zeros), decoders initialised from a seeded
-    torch.Generator, and the three Adam optimisers, on `device`."""
+    torch.Generator, and the three Adam optimisers, on `device` (default
+    "cuda", which raises when CUDA is absent; the steps run where the state
+    lives, so tests pass "cpu")."""
+    device = resolve_device(device)
     n = scene.num_gaussians
     if scene.semantic_features is None:
         feats = torch.zeros((n, cfg.feature_dim), dtype=torch.float32)

@@ -42,8 +42,9 @@ class RasterizeConfig:
     aligned: bool = True
     # shrink binning rects to each splat's alpha-floor contour (image-exact)
     opacity_extents: bool = True
-    # training forward on the inference kernel (K5) over the aligned
-    # ranges; the colour gradient is the same either way
+    # kept so that JAX configs load unchanged; no effect here: K1 and K5
+    # share one kernel body (csrc/blend_forward.cu), so aligned binnings
+    # always launch K1
     fast_fwd_aligned: bool = False
 
     def instance_budget(self, n: int) -> int:
@@ -86,28 +87,26 @@ def order_ext(order: torch.Tensor) -> torch.Tensor:
     return torch.cat([order, torch.full((1,), n, dtype=order.dtype, device=order.device)])
 
 
-def _image_to_tiles(img, tiles_x, tiles_y, tile_h, tile_w):
-    """(H, W, C) → (T, P, C), zero-padding to the tile grid."""
-    h, w, c = img.shape
-    img = torch.nn.functional.pad(img, (0, 0, 0, tiles_x * tile_w - w, 0, tiles_y * tile_h - h))
-    img = img.reshape(tiles_y, tile_h, tiles_x, tile_w, c).permute(0, 2, 1, 3, 4)
-    return img.reshape(tiles_x * tiles_y, tile_h * tile_w, c)
-
-
-def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg):
-    """Project + bin + geometry table. No colour dependence."""
-    tiles_x = -(-width // cfg.tile_w)
-    tiles_y = -(-height // cfg.tile_h)
-    n = means.shape[0]
+def _project_and_bin(means, quats, scales, opacities, viewmat, K, width, height, cfg):
+    """Project + bin (the binning arguments are set here only)."""
     proj = project_gaussians(
         means, quats, scales, viewmat, K, width, height,
         opacities=opacities if cfg.opacity_extents else None,
     )
     binned = tiles.bin_gaussians(
         proj.means2d, proj.radii_x, proj.depths, width, height,
-        cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(n),
+        cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(means.shape[0]),
         chunk=cfg.chunk, radii_y=proj.radii_y, aligned=cfg.aligned,
     )
+    return proj, binned
+
+
+def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg):
+    """Project + bin + geometry table. No colour dependence."""
+    tiles_x = -(-width // cfg.tile_w)
+    tiles_y = -(-height // cfg.tile_h)
+    proj, binned = _project_and_bin(means, quats, scales, opacities, viewmat, K,
+                                    width, height, cfg)
     return proj, binned, _geom_table(proj, opacities), tiles_x, tiles_y
 
 
@@ -141,10 +140,10 @@ class _Blend(torch.autograd.Function):
     """Tile blend of rank-ordered colours (N, C), differentiable with
     respect to the colours only; the background is a constant.
 
-    Forward: K1 on an aligned binning (K5 under cfg.fast_fwd_aligned or on
-    an unaligned binning). Backward: K2 gives each instance slot its colour
-    gradient, K3 sums the slots of each rank over the binning's
-    ReductionLayout. Returns the tile image (T, P, C) and alpha (T, P, 1).
+    Forward: K1 on an aligned binning, K5 on an unaligned one. Backward:
+    K2 gives each instance slot its colour gradient, K3 sums the slots of
+    each rank over the binning's ReductionLayout. Returns the tile image
+    (T, P, C) and alpha (T, P, 1).
     """
 
     @staticmethod
@@ -152,8 +151,7 @@ class _Blend(torch.autograd.Function):
                 red_slot, red_rank, red_block, bg, tiles_x, tiles_y, cfg):
         n, c = colors.shape
         table = torch.cat([colors, colors.new_zeros((1, c))]).contiguous()
-        blend = (kernels.blend_forward_aligned
-                 if cfg.aligned and not cfg.fast_fwd_aligned else kernels.blend_forward)
+        blend = kernels.blend_forward_aligned if cfg.aligned else kernels.blend_forward
         out = blend(geom, table, inst_gid, tile_starts, tile_counts, bg,
                     tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
         ctx.save_for_backward(geom, inst_gid, tile_starts, tile_counts,
@@ -207,15 +205,8 @@ def prepare_binning(means, quats, scales, viewmat, K, width: int, height: int,
     """The sorted instance list of one (frozen geometry, camera) pair: the
     sort-dominated part of rasterization, computed once per camera by the
     GAD trainer and reused for every step. Runs on the inputs' device."""
-    proj = project_gaussians(
-        means, quats, scales, viewmat, K, width, height,
-        opacities=opacities if config.opacity_extents else None,
-    )
-    return tiles.bin_gaussians(
-        proj.means2d, proj.radii_x, proj.depths, width, height,
-        config.tile_w, config.tile_h, budget=config.instance_budget(means.shape[0]),
-        chunk=config.chunk, radii_y=proj.radii_y, aligned=config.aligned,
-    )
+    return _project_and_bin(means, quats, scales, opacities, viewmat, K,
+                            width, height, config)[1]
 
 
 def rasterize_binned(means, quats, scales, opacities, colors, viewmat, K,

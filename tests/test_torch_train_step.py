@@ -187,6 +187,22 @@ def test_gad_config_roundtrip(tmp_path):
     assert ttrain.loss_weights(15001, back) == (2e-3, 0.1)
 
 
+def test_create_train_state_defaults_to_cuda():
+    """The state (and so every step, which runs where the state lives)
+    defaults to the card; without one it raises instead of training on the
+    CPU."""
+    raw, feats, _, _ = _inputs()
+    _, tcfg = _cfgs()
+    scene = scene_from_arrays(raw["means"], raw["quats"], np.log(raw["scales"]),
+                              np.log(raw["opacities"] / (1 - raw["opacities"])), raw["sh"],
+                              semantic_features=feats)
+    if torch.cuda.is_available():
+        assert ttrain.create_train_state(scene, tcfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ttrain.create_train_state(scene, tcfg)
+
+
 def test_render_feature_map_decodes_the_rendered_map():
     raw, feats, _, _ = _inputs()
     _, tcfg = _cfgs()

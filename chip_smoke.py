@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
-  2. build every kernel of the serving path from gags_torch/splat/csrc
+  2. build every kernel from gags_torch/splat/csrc
      (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
@@ -38,8 +38,32 @@ Phases, each of which fails the run:
      bounds and index_add_ yardsticks (K4 at 1025 and 4097 segments, for
      2 and 33 channels); profile one training step;
   9. serve the trained model dir (load_server) and check one relevancy map;
- 10. print {"kernels": [...]} with times, bounds and launch counts of
-     K1-K6, then the card's name and power limit, then the final
+ 10. RGB pretraining: write a COLMAP scene to a temporary directory with
+     the port's own writers (ground-truth PNGs of make_scene(300_000,
+     seed=0, extent=3.0) with SH-3 colours rendered by K5 from eight
+     PINHOLE cameras at 1280x720 around the bench camera; an SfM seed
+     cloud of 100,000 of its means plus N(0, 0.01) noise with their dc
+     colours; camera 0's image once more Paeth-filtered, its read_png
+     decode timed and held to the pixels), then train 300 steps through gags_torch.cli.train_rgb.run
+     at -r 1 (SH degree 3, capacity factor 4: 400k slots; densify at 100
+     and 200) with the launch counts set to 0 just before and read just
+     after: K1, K6 and K8 must each have launched >= 300 times and K3 >=
+     600, the loss must stay finite and the mean of the last 20 losses
+     fall below that of the first 20; n_alive before and after each
+     densify;
+ 11. time 30 more steps of make_rgb_step at SH degree 3 (median, p90 from
+     CUDA events), count the host syncs of one (sync debug mode) and
+     profile one;
+ 12. K8 against its plain version on camera 0's binning of the trained
+     state (overflow 0) and the real cotangents of its L1 + SSIM loss, at
+     the CPU test's tolerance, column by column (each colour channel and
+     each of mx, my, ca, cb, cc, opacity against its own scale), and the
+     means2d tap's gradient (K8 then K3) against the plain version's mx, my
+     rows summed per Gaussian; with K8's time, bound and plain time;
+ 13. load the snapshot PLY with GaussianScene.from_ply and render camera
+     0: its PSNR against the ground truth must exceed the seed cloud's;
+ 14. print {"kernels": [...]} with times, bounds and launch counts of
+     K1-K6 and K8, then the card's name and power limit, then the final
      {"ok": true, ...}.
 """
 
@@ -75,6 +99,12 @@ TRAIN_SRC_W, TRAIN_SRC_H = 1280, 720
 TRAIN_CAMERAS = 4
 TRAIN_MASKS = 300
 TRAIN_STEPS = 40
+# the RGB pretraining configuration (the RGB model at full width: SH
+# degree 3, 3 channels, 1280x720 at -r 1; cut to 8 cameras and 300 steps)
+RGB_CAMERAS = 8
+RGB_SEED_POINTS = 100_000
+RGB_STEPS = 300
+RGB_TIMED = 30
 
 
 def fail(msg: str) -> None:
@@ -144,6 +174,28 @@ def profile_request(fn, label: str, top: int = 8) -> dict:
     for e in rows[:top]:
         print(f"#   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<4d} {e.key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def count_syncs(fn) -> dict:
+    """Host syncs of one call of fn, under torch.cuda.set_sync_debug_mode:
+    {file:line that asked: count}."""
+    import warnings
+
+    torch.cuda.synchronize()
+    found: dict = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for w in caught:  # (not the mode's own notice that it is a prototype)
+        if "called a synchronizing" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            found[key] = found.get(key, 0) + 1
+    torch.cuda.synchronize()
+    return found
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -502,7 +554,308 @@ def train_phase(dev: torch.device, gpu: str) -> list:
     return report
 
 
+def encode_png_paeth(a: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 → an RGB PNG whose every row has filter 4 (Paeth),
+    the filter that libpng and PIL choose for most rows of a photograph."""
+    h, w, _ = a.shape
+    x = a.astype(np.int32)
+    left = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]
+    up = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]
+    ul = np.pad(x, ((1, 0), (1, 0), (0, 0)))[:-1, :-1]
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    rows = np.concatenate([np.full((h, 1), 4, np.uint8),
+                           ((x - pred) & 0xFF).astype(np.uint8).reshape(h, w * 3)], axis=1)
+
+    def chunk(tag, data):
+        return (len(data).to_bytes(4, "big") + tag + data
+                + (zlib.crc32(tag + data) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_rgb_fixture(root: str, dev: torch.device) -> None:
+    """The RGB pretraining scene on disk, written with the port's own
+    writers: ground-truth PNGs of make_scene(300_000) with SH-3 colours
+    rendered by the port (K5) from RGB_CAMERAS PINHOLE cameras around the
+    bench camera, and an SfM seed cloud of RGB_SEED_POINTS of its means plus
+    N(0, 0.01) noise with their dc colours. Camera 0's image is also
+    written Paeth-filtered beside the scene, and read_png's decode of it is
+    timed and held to the pixels."""
+    import math
+
+    from gags_torch.core.camera import Camera, look_at
+    from gags_torch.core.sh import SH_C0
+    from gags_torch.scene import colmap as cm
+    from gags_torch.scene.ply import write_points3d_ply
+    from gags_torch.splat.rasterizer import RasterizeConfig
+    from gags_torch.splat.render import render
+    from gags_torch.utils.image import encode_png, read_png
+    from gags_torch.utils.synthetic import make_scene
+
+    rng = np.random.default_rng(0)
+    sparse = os.path.join(root, "sparse", "0")
+    images = os.path.join(root, "images")
+    os.makedirs(sparse)
+    os.makedirs(images)
+    w, h = WIDTH, HEIGHT
+    fx = w / (2 * math.tan(math.radians(30.0)))  # make_camera's 60 degree field of view
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1]], np.float32)
+    raw = make_scene(TRAIN_N, seed=0, extent=3.0)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    imgs = {}
+    for i in range(RGB_CAMERAS):
+        ang = 2 * np.pi * i / RGB_CAMERAS
+        eye = np.array([0.25 * np.cos(ang), 0.15 * np.sin(ang), -0.2])
+        vm = look_at(eye, np.array([0.0, 0.0, 6.0]), np.array([0.0, -1.0, 0.0])).astype(np.float64)
+        imgs[i + 1] = cm.ColmapImage(i + 1, cm.rotmat_to_qvec(vm[:3, :3]), vm[:3, 3], 1,
+                                     f"cam{i:02d}.png")
+        cam = Camera(viewmat=torch.as_tensor(vm, dtype=torch.float32), K=torch.as_tensor(K),
+                     width=w, height=h)
+        out = render(cam, means=t["means"], quats=t["quats"], scales=t["scales"],
+                     opacities=t["opacities"], sh=t["sh"], sh_degree=3,
+                     bg_color=torch.zeros(3, device=dev),
+                     config=RasterizeConfig(aligned=False), device=dev)
+        with open(os.path.join(images, f"cam{i:02d}.png"), "wb") as f:
+            f.write(encode_png(out.render.cpu().numpy()))
+        if i == 0:
+            px = read_png(os.path.join(images, "cam00.png"))
+            paeth = os.path.join(root, "cam00_paeth.png")
+            with open(paeth, "wb") as f:
+                f.write(encode_png_paeth(px))
+            t0 = time.perf_counter()
+            got = read_png(paeth)
+            png_s = time.perf_counter() - t0
+            if not np.array_equal(got, px):
+                fail("read_png decodes a Paeth-filtered PNG to other pixels")
+            print(f"# read_png: a Paeth-filtered {w}x{h} RGB PNG decoded in {png_s:.3f} s "
+                  f"(host CPU)", flush=True)
+    cm.write_cameras_binary(os.path.join(sparse, "cameras.bin"),
+                            {1: cm.ColmapCamera(1, "PINHOLE", w, h, np.array([fx, fx, w / 2, h / 2]))})
+    cm.write_images_binary(os.path.join(sparse, "images.bin"), imgs)
+    pick = rng.choice(TRAIN_N, RGB_SEED_POINTS, replace=False)
+    xyz = raw["means"][pick] + rng.normal(0, 0.01, size=(RGB_SEED_POINTS, 3)).astype(np.float32)
+    rgb = np.clip(SH_C0 * raw["sh"][pick, 0] + 0.5, 0.0, 1.0)
+    write_points3d_ply(os.path.join(sparse, "points3D.ply"), xyz, rgb)
+
+
+def rgb_phase(dev: torch.device, gpu: str) -> dict:
+    """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
+    the step's times and profile, K8 against its plain version on the
+    trained state with the loss's real cotangents, and the snapshot PLY
+    rendered. Returns K8's report entry."""
+    import dataclasses
+
+    from gags_torch.cli.train_rgb import RunConfig, run
+    from gags_torch.core.sh import sh_colors
+    from gags_torch.rgb.train import RgbConfig, make_rgb_step
+    from gags_torch.scene.dataset import camera_from_info, detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat import kernels
+    from gags_torch.splat.rasterizer import _prepare, order_ext, rasterize
+    from gags_torch.splat.render import render
+    from gags_torch.utils.image import load_rgb
+    from gags_torch.scene.ply import read_points3d_ply
+    from gags_torch.utils.metrics import psnr, ssim
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        write_rgb_fixture(root, dev)
+        print(f"# RGB fixture written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # -- 10. train through the entry point -------------------------------
+        cfg = RgbConfig(densify_from_iter=50, densification_interval=100,
+                        densify_until_iter=RGB_STEPS)
+        rc = RunConfig(source_path=root, model_path=model, resolution=1, iterations=RGB_STEPS,
+                       save_iterations=str(RGB_STEPS), capacity_factor=4, sh_degree=3,
+                       device=str(dev))
+        metrics = []
+
+        def on_step(it, state, m):
+            if m is not None:
+                metrics.append(m)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = run(rc, cfg, on_step=on_step)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        run_s = time.perf_counter() - t0
+        print(f"# launches during RGB training: {launches}")
+        for name, least in (("blend_forward_aligned", RGB_STEPS), ("expand_gid", RGB_STEPS),
+                            ("blend_backward_full", RGB_STEPS),
+                            ("sorted_segment_sum", 2 * RGB_STEPS)):
+            if launches[name] < least:
+                fail(f"{name} launched {launches[name]} times in {RGB_STEPS} RGB steps "
+                     f"(at least {least} expected)")
+        losses = np.array([float(m["loss"]) for m in metrics])
+        alive = [int(m["n_alive"]) for m in metrics]
+        if len(losses) != RGB_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"RGB training losses {losses}")
+        first, last = losses[:20].mean(), losses[-20:].mean()
+        if not last < first:
+            fail(f"RGB loss did not fall: first 20 mean {first}, last 20 mean {last}")
+        for it in range(cfg.densify_from_iter + 1, RGB_STEPS):
+            if it % cfg.densification_interval == 0:
+                print(f"# densify at {it}: n_alive {alive[it - 1]} -> {alive[it]} "
+                      f"of {state.capacity} slots")
+        print(f"# RGB: {RGB_STEPS} steps in {run_s:.1f} s (set-up included); loss "
+              f"first-20 mean {first:.5f} -> last-20 mean {last:.5f} ({gpu})", flush=True)
+
+        # -- 11. time the step at SH degree 3 ----------------------------------
+        info = detect_and_load(root, foundation_model="none")
+        cams = [camera_from_info(ci, 1).to(dev) for ci in info.train_cameras]
+        imgs = [torch.as_tensor(load_rgb(ci.image_path, c.width, c.height), device=dev)
+                .to(torch.float32) / 255.0 for ci, c in zip(info.train_cameras, cams)]
+        w, h = cams[0].width, cams[0].height
+        step = make_rgb_step(cfg, w, h, spatial_scale=info.radius)
+        batches = [dict(viewmat=c.viewmat, K=c.K, image=im) for c, im in zip(cams, imgs)]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(RGB_TIMED + 1)]
+        step(state, batches[0], 1e-5, 3)  # warm the SH-3 path
+        torch.cuda.synchronize()
+        events[0].record()
+        for i in range(RGB_TIMED):
+            step(state, batches[i % len(batches)], 1e-5, 3)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        step_ms = np.array([events[i].elapsed_time(events[i + 1]) for i in range(RGB_TIMED)])
+        steps = dict(median_ms=float(np.median(step_ms)), p90_ms=float(np.percentile(step_ms, 90)),
+                     steps=RGB_TIMED, n_alive=int(state.alive.sum()), slots=state.capacity)
+        steps["host_syncs"] = count_syncs(lambda: step(state, batches[1], 1e-5, 3))
+        print(f"# RGB step at SH 3, {w}x{h}: {steps} ({gpu})", flush=True)
+        steps.update(profile_request(lambda: step(state, batches[0], 1e-5, 3),
+                                     f"RGB step {w}x{h} / {steps['n_alive']} alive", top=16))
+
+        # -- 12. K8 vs its plain version on camera 0 ---------------------------
+        p = state.params
+        geo = (p["means"], p["quats"], torch.exp(p["scales_raw"]),
+               torch.sigmoid(p["opacities_raw"]))
+        vm, K = batches[0]["viewmat"], batches[0]["K"]
+        raster = cfg.raster
+        with torch.no_grad():
+            for factor in (raster.budget_factor, 2 * raster.budget_factor):
+                raster = dataclasses.replace(raster, budget_factor=factor)
+                _, b, geom, tx, ty = _prepare(*geo, vm, K, w, h, raster)
+                if int(b.overflow) == 0:
+                    break
+            else:
+                fail(f"camera 0 binning overflow {int(b.overflow)} at budget factor {factor}")
+        colors = sh_colors(3, state.sh, p["means"], -(vm[:3, :3].T @ vm[:3, 3])).detach()
+        leaf = colors.clone().requires_grad_(True)
+        tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
+        res = rasterize(*geo, leaf, vm, K, w, h, background=torch.zeros(3, device=dev),
+                        config=raster, means2d_tap=tap, device=dev)
+        img = res.image
+        img.retain_grad()
+        l1 = torch.mean(torch.abs(img - batches[0]["image"]))
+        (0.8 * l1 + 0.2 * (1.0 - ssim(img, batches[0]["image"]))).backward()
+        th, tw = raster.tile_h, raster.tile_w
+        g_img = image_to_tiles(img.grad, tx, ty, th, tw)
+        # K8 is linear in the cotangents: scaled to max |g| = 1; the loss
+        # does not read alpha and the background is 0, so g_alpha is 0
+        g_max = g_img.abs().max()
+        g_img = (g_img / g_max).contiguous()
+        g_alpha = torch.zeros_like(g_img[..., :1])
+        perm = order_ext(b.order.long())
+        geom_p = geom[perm].contiguous()
+        cols_p = torch.cat([colors, torch.zeros((1, 3), device=dev)])[perm].contiguous()
+        a8 = (geom_p, cols_p, b.inst_gid, b.tile_starts, b.tile_counts, g_img, g_alpha,
+              tx, ty, th, tw)
+        got = kernels.blend_backward_full(*a8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_col, want_geo, walked, blended = kernels.blend_backward_full_plain(
+            *a8, return_pairs=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # dL/dmeans2d, the densification signal: the plain version's mx and
+        # my rows summed per Gaussian in float64 (slots of the sentinel rank
+        # n dropped), against the tap's gradient through K8 and K3
+        n_g = geo[0].shape[0]
+        rank_sum = torch.zeros((n_g + 1, 2), dtype=torch.float64, device=dev).index_add_(
+            0, b.inst_gid.long(), want_geo[:, :2].double())
+        want_tap = torch.zeros((n_g, 2), dtype=torch.float64, device=dev).index_copy_(
+            0, b.order.long(), rank_sum[:n_g]) * g_max.double()
+        if bool(got[1][:, 6:].any()):
+            fail("K8 blend_backward_full writes geometry rows 6-7")
+        cmp8 = {}
+        for what, g, wnt in ([(f"colour {j}", got[0][:, j], want_col[:, j]) for j in range(3)]
+                             + [(name, got[1][:, j], want_geo[:, j]) for j, name in
+                                enumerate(("mx", "my", "ca", "cb", "cc", "opacity"))]
+                             + [(f"tap {name}", tap.grad[:, j].double(), want_tap[:, j])
+                                for j, name in enumerate(("x", "y"))]):
+            # the CPU test's tolerance, column by column (the conic columns
+            # are thousands of times larger than mx, my and opacity): at
+            # most 0.1% of values outside 1e-5 max|g| + 1e-4 rel (isolated
+            # threshold flips, atomics in no fixed order), mean error at
+            # most 1e-5 max|g| and 1e-3 mean|g|
+            scale = float(wnt.abs().max())
+            err = (g - wnt).abs()
+            c = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                 "frac_outside": float((err > 1e-5 * scale + 1e-4 * wnt.abs()).float().mean()),
+                 "max_abs_grad": scale, "mean_abs_grad": float(wnt.abs().mean())}
+            print(f"# K8 blend_backward_full {what}: {c}", flush=True)
+            if (not torch.isfinite(g).all() or scale == 0 or c["frac_outside"] > 1e-3
+                    or c["mean_abs_err"] > 1e-5 * scale
+                    or c["mean_abs_err"] > 1e-3 * c["mean_abs_grad"]):
+                fail(f"K8 blend_backward_full {what} disagrees with its plain version: {c}")
+            cmp8[what] = c
+        nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
+                  + g_img.numel() + g_alpha.numel() + got[0].numel() + got[1].numel()) * 4
+        # per walked pair and walk: the blend_common arithmetic (16); per
+        # blended pair: walk A 5 + 2C, walk B ~40 + 4C (u, the prefix, the
+        # chain rule, C + 6 products and their sums)
+        ops = 2 * 16 * walked + (45 + 6 * 3) * blended
+        k8 = dict(
+            name="blend_backward_full", id="K8", route="cuda",
+            source="gags_torch/splat/csrc/blend_backward_full.cu",
+            replaces="gags_tpu/splat/pallas_kernel.py:1253",
+            launches=launches["blend_backward_full"],
+            launches_per_step=launches["blend_backward_full"] / RGB_STEPS,
+            check="ok", max_abs_err=max(c["max_abs_err"] for k, c in cmp8.items()
+                                         if not k.startswith("tap")),
+            ms=cuda_ms(lambda: kernels.blend_backward_full(*a8), 10), plain_ms=plain_ms,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
+            library_ms=None, pairs_walked=walked, pairs_blended=blended,
+            instances=int(b.num_valid), slots=b.inst_gid.numel(), budget_factor=factor,
+            check_resolution=f"{w}x{h}", by_output=cmp8, rgb_steps=steps,
+            rgb_launches={k: v for k, v in launches.items() if v})
+        k8["bound_ms"] = max(k8["bytes_ms"], k8["ops_ms"])
+        k8["bound_by"] = "bytes" if k8["bytes_ms"] >= k8["ops_ms"] else "operations"
+        print(f"# K8 blend_backward_full: ms {k8['ms']:.4f}, plain {plain_ms:.1f} ms, bound "
+              f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}), {walked} pairs walked, {blended} "
+              f"blended, {k8['instances']} instances ({gpu})", flush=True)
+
+        # -- 13. the snapshot PLY renders, closer to camera 0 than the seed --
+        ply = os.path.join(model, "point_cloud", f"iteration_{RGB_STEPS}", "point_cloud.ply")
+        scene = GaussianScene.from_ply(ply, device=dev)
+        if scene.num_gaussians != alive[-1]:
+            fail(f"snapshot holds {scene.num_gaussians} Gaussians, {alive[-1]} were alive")
+        xyz, rgb, _ = read_points3d_ply(info.points_path)
+        seed = GaussianScene.from_point_cloud(xyz, rgb, max_sh_degree=3, device=dev)
+        db = {}
+        for name, sc in (("seed", seed), ("snapshot", scene)):
+            out = render(cams[0], means=sc.means, quats=sc.quats, scales=sc.scales,
+                         opacities=sc.opacities, sh=sc.sh, sh_degree=3,
+                         bg_color=torch.zeros(3, device=dev), device=dev)
+            if out.render.shape != (h, w, 3) or not torch.isfinite(out.render).all():
+                fail(f"{name} render {tuple(out.render.shape)} not finite")
+            db[name] = float(psnr(out.render, batches[0]["image"]))
+        if not db["snapshot"] > db["seed"]:
+            fail(f"camera 0 PSNR of the snapshot {db['snapshot']} dB is not above the seed "
+                 f"cloud's {db['seed']} dB")
+        print(f"# snapshot PLY: {scene.num_gaussians} Gaussians, camera 0 PSNR "
+              f"{db['snapshot']:.3f} dB (seed cloud {db['seed']:.3f} dB)", flush=True)
+    return k8
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     from gags_torch.cli.serve import SceneServer, encode_png, make_handler
@@ -710,14 +1063,17 @@ def main() -> int:
     # -- 7-9. train, K1-K4, serve the trained model ------------------------------
     train_kernels = train_phase(dev, gpu)
 
-    # -- 10. report --------------------------------------------------------------
+    # -- 10-13. RGB pretraining, K8 ---------------------------------------------
+    rgb_kernels = [rgb_phase(dev, gpu)]
+
+    # -- 14. report --------------------------------------------------------------
     f16 = k5["features"]
     keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
         {**{k: r[k] for k in keep}, **{k: v for k, v in r.items()
                                        if k not in keep and k not in ("bytes_ms", "ops_ms")}}
-        for r in train_kernels
+        for r in train_kernels + rgb_kernels
     ] + [
         {
             "name": "expand_gid", "id": "K6", "route": "cuda",
@@ -750,6 +1106,7 @@ def main() -> int:
             },
         },
     ]}
+    print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,8 +1,9 @@
 """Carry parameters into the port: flax decoder parameters (as numpy
 arrays) → torch state dicts, raw Gaussian arrays → GaussianScene
 (`scene_from_arrays`, defined beside GaussianScene), a JAX GAD train
-state → the port's (`load_jax_train_state`), and the `decoders.pt` file
-that `cli.serve.load_server` reads."""
+state → the port's (`load_jax_train_state`), a JAX RGB pretraining state
+→ the port's (`load_jax_rgb_state`), and the `decoders.pt` file that
+`cli.serve.load_server` reads."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from gags_torch.scene.gaussian_data import scene_from_arrays
 
 __all__ = ["decoder_state_from_flax", "scene_from_arrays", "save_decoders",
-           "load_decoder_state", "load_jax_train_state"]
+           "load_decoder_state", "load_jax_train_state", "load_jax_rgb_state"]
 
 
 def decoder_state_from_flax(params: Mapping[str, Mapping[str, np.ndarray]]) -> dict:
@@ -80,3 +81,28 @@ def load_jax_train_state(state, *, features, decoder_params, scale_params,
     if step is not None:
         state.step = int(step)
     return state
+
+
+def load_jax_rgb_state(jstate, seed: int = 0, device="cuda"):
+    """Carry a JAX `RgbState` (any object with its fields, whose values
+    numpy can read) into the port's `rgb.train.RgbState` on `device`: the
+    parameters, the per-group Adam moments, `alive`, `grad_accum`,
+    `denom`, `max_radii` and `step`. JAX's PRNG key does not carry over;
+    the port's split noise comes from a torch.Generator seeded `seed`."""
+    from gags_torch import resolve_device
+    from gags_torch.rgb.train import RgbState
+
+    dev = resolve_device(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    sh = t(jstate.sh)
+    params = dict(means=t(jstate.means), sh_dc=sh[:, :1].contiguous(),
+                  sh_rest=sh[:, 1:].contiguous(), opacities_raw=t(jstate.opacities_raw),
+                  scales_raw=t(jstate.scales_raw), quats=t(jstate.quats))
+    opt = {g: {k: t(v) for k, v in jstate.opt[g].items()} for g in params}
+    return RgbState(
+        step=int(np.asarray(jstate.step)), params=params, alive=t(jstate.alive, torch.bool),
+        grad_accum=t(jstate.grad_accum), denom=t(jstate.denom), max_radii=t(jstate.max_radii),
+        opt=opt, generator=torch.Generator(device=dev).manual_seed(seed))

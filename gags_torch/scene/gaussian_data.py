@@ -64,6 +64,38 @@ class GaussianScene:
             host(self.scales_raw), host(self.quats), host(self.semantic_features),
         )
 
+    @staticmethod
+    def from_point_cloud(xyz, rgb, max_sh_degree: int = 3, feature_dim: int = 16,
+                         knn_mean_sq_dist=None, device="cpu") -> "GaussianScene":
+        """Initialise from an SfM seed cloud like the reference's
+        create_from_pcd (`scene/gaussian_model.py:151-180`): SH dc from RGB,
+        opacity 0.1, isotropic scale sqrt(mean 3-NN squared distance, at
+        least 1e-7), identity quats, zero semantic features. The 3-NN search
+        runs on `device`."""
+        from gags_torch.core.sh import rgb_to_sh
+        from gags_torch.core.transforms import inverse_sigmoid
+        from gags_torch.knn import mean_knn_sq_dist
+
+        xyz = torch.as_tensor(np.asarray(xyz, np.float32), device=device)
+        rgb = torch.as_tensor(np.asarray(rgb, np.float32), device=device)
+        n = xyz.shape[0]
+        sh = torch.zeros((n, (max_sh_degree + 1) ** 2, 3), dtype=torch.float32, device=device)
+        sh[:, 0, :] = rgb_to_sh(rgb)
+        if knn_mean_sq_dist is None:
+            knn_mean_sq_dist = mean_knn_sq_dist(xyz)
+        elif not isinstance(knn_mean_sq_dist, torch.Tensor):
+            knn_mean_sq_dist = torch.from_numpy(np.array(knn_mean_sq_dist, np.float32))
+        dist2 = torch.clamp_min(knn_mean_sq_dist.to(device), 1e-7)
+        scales_raw = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+        quats = torch.zeros((n, 4), dtype=torch.float32, device=device)
+        quats[:, 0] = 1.0
+        opac = inverse_sigmoid(torch.full((n,), 0.1, dtype=torch.float32, device=device))
+        feats = (torch.zeros((n, feature_dim), dtype=torch.float32, device=device)
+                 if feature_dim else None)
+        return GaussianScene(means=xyz, sh=sh, opacities_raw=opac, scales_raw=scales_raw,
+                             quats=quats, semantic_features=feats,
+                             max_sh_degree=max_sh_degree)
+
 
 def scene_from_arrays(means, quats, scales_raw, opacities_raw, sh,
                       semantic_features=None, max_sh_degree: int = 3,

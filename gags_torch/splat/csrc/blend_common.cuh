@@ -1,5 +1,6 @@
 // blend_common.cuh: the per-(pixel, splat) arithmetic of every blend
-// kernel (blend_forward.cu: K5 and K1; blend_backward.cu: K2).
+// kernel (blend_forward.cu: K5 and K1; blend_backward.cu: K2;
+// blend_backward_full.cu: K8).
 //
 // The backward recomputes the forward's walk, so both must take the same
 // inclusion decisions at the 1/255 floor and the 1e-4 transmittance stop
@@ -24,19 +25,36 @@ constexpr float kAlphaFloor = 1.0f / 255.0f;
 constexpr float kAlphaClamp = 0.999f;
 constexpr float kTEps = 1e-4f;
 
-// alpha of a splat at pixel centre (px, py); 0 where it does not count
-__device__ __forceinline__ float splat_alpha(float px, float py, float mx,
-                                             float my, float ca, float cb,
-                                             float cc, float op) {
+// alpha of a splat at pixel centre (px, py); 0 where it does not count.
+// Also returns the offsets dx, dy and vis = exp(-sigma), which the
+// geometry gradient needs (vis is left unset where sigma < 0).
+__device__ __forceinline__ float splat_alpha_parts(float px, float py,
+                                                   float mx, float my,
+                                                   float ca, float cb,
+                                                   float cc, float op,
+                                                   float* dx_out,
+                                                   float* dy_out,
+                                                   float* vis_out) {
   const float dx = __fsub_rn(px, mx);
   const float dy = __fsub_rn(py, my);
+  *dx_out = dx;
+  *dy_out = dy;
   const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
                                __fmul_rn(__fmul_rn(cc, dy), dy));
   const float sigma =
       __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
   if (sigma < 0.0f) return 0.0f;
-  const float alpha = fminf(kAlphaClamp, __fmul_rn(op, expf(-sigma)));
+  const float vis = expf(-sigma);
+  *vis_out = vis;
+  const float alpha = fminf(kAlphaClamp, __fmul_rn(op, vis));
   return alpha < kAlphaFloor ? 0.0f : alpha;
+}
+
+__device__ __forceinline__ float splat_alpha(float px, float py, float mx,
+                                             float my, float ca, float cb,
+                                             float cc, float op) {
+  float dx, dy, vis;
+  return splat_alpha_parts(px, py, mx, my, ca, cb, cc, op, &dx, &dy, &vis);
 }
 
 // transmittance after a splat of the given alpha

@@ -6,6 +6,8 @@
   K4 dense_segment_sum      per-segment sums of pixel rows (region losses)
   K5 blend_forward          inference composite over unaligned ranges
   K6 expand_gid             owning rank of every instance slot
+  K8 blend_backward_full    full VJP of the blend: colour and screen-space
+                            geometry gradients, per instance
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the hand-written CUDA kernel (``csrc/*.cu``, built with nvcc at
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +30,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 EXPAND_GID_SRC = CSRC / "expand_gid.cu"
 BLEND_FORWARD_SRC = CSRC / "blend_forward.cu"
 BLEND_BACKWARD_SRC = CSRC / "blend_backward.cu"
+BLEND_BACKWARD_FULL_SRC = CSRC / "blend_backward_full.cu"
 SORTED_SEGMENT_SUM_SRC = CSRC / "sorted_segment_sum.cu"
 DENSE_SEGMENT_SUM_SRC = CSRC / "dense_segment_sum.cu"
-SOURCES = (EXPAND_GID_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC,
+SOURCES = (EXPAND_GID_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC, BLEND_BACKWARD_FULL_SRC,
            SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC)
 
 ALPHA_FLOOR = 1.0 / 255.0
@@ -39,6 +43,7 @@ T_EPS = 1e-4
 launch_counts = {
     "blend_forward_aligned": 0,
     "blend_backward": 0,
+    "blend_backward_full": 0,
     "sorted_segment_sum": 0,
     "dense_segment_sum": 0,
     "blend_forward": 0,
@@ -129,13 +134,27 @@ def _pixel_centres(num_tiles, tiles_x, tile_h, tile_w, device):
     return px, py
 
 
+class _WalkStep(NamedTuple):
+    """One instance index k of every tile's range (see `_walk_ranges`)."""
+
+    inr: torch.Tensor  # (T,) tiles whose range holds k
+    pos: torch.Tensor  # (T,) slot positions (0 outside the range)
+    rows: torch.Tensor  # (T, 8) geometry rows of the slots
+    dx: torch.Tensor  # (T, P) pixel centre minus the splat's mean
+    dy: torch.Tensor
+    vis: torch.Tensor  # (T, P) exp(-sigma)
+    alpha: torch.Tensor  # (T, P) clamped alpha, 0 where the splat does not count
+    t_before: torch.Tensor  # (T, P) transmittance in front of the splat
+    use: torch.Tensor  # (T, P) bool, the splat blends
+    w: torch.Tensor  # (T, P) blend weight alpha T where it blends, else 0
+    T: torch.Tensor  # (T, P) transmittance after it
+
+
 def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
                  tile_h, tile_w, pairs=None):
     """The front-to-back walk of the plain blends, vectorised over all
     tiles and pixels, taking the instance index k of every range in lock
-    step. Yields, per k, the tiles whose range holds k (T,), the slot
-    positions (T,), the blend weights w (T, P) (alpha T where the splat
-    blends, else 0) and the transmittance after it (T, P).
+    step. Yields a `_WalkStep` per k.
 
     `pairs`, a list [walked, blended], accumulates the (pixel, instance)
     pairs this data needs evaluated (each pixel up to the splat that ends
@@ -157,7 +176,8 @@ def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
         dx = px - rows[:, 0:1]
         dy = py - rows[:, 1:2]
         sigma = 0.5 * (rows[:, 2:3] * dx * dx + rows[:, 4:5] * dy * dy) + rows[:, 3:4] * dx * dy
-        alpha = torch.clamp_max(op * torch.exp(-sigma), ALPHA_CLAMP)
+        vis = torch.exp(-sigma)
+        alpha = torch.clamp_max(op * vis, ALPHA_CLAMP)
         live = (sigma >= 0.0) & (alpha >= ALPHA_FLOOR)
         alpha = torch.where(live, alpha, zero)
         next_t = T * (1.0 - alpha)
@@ -167,9 +187,10 @@ def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
         if pairs is not None:  # device sums: no host sync inside the walk
             pairs[0] = pairs[0] + (inr[:, None] & ~done).sum()
             pairs[1] = pairs[1] + use.sum()
+        t_before = T
         T = torch.where(use, next_t, T)
         done |= kill
-        yield inr, pos, w, T
+        yield _WalkStep(inr, pos, rows, dx, dy, vis, alpha, t_before, use, w, T)
 
 
 def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
@@ -182,9 +203,10 @@ def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
     acc = torch.zeros((tiles_x * tiles_y, npix, c), dtype=torch.float32, device=geom.device)
     T = torch.ones(acc.shape[:2], dtype=torch.float32, device=geom.device)
     pairs = [0, 0]
-    for _, pos, w, T in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
-                                     tiles_y, tile_h, tile_w, pairs if return_pairs else None):
-        acc += w[..., None] * colors[inst_gid[pos].long()][:, None, :]
+    for s in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
+                          tiles_y, tile_h, tile_w, pairs if return_pairs else None):
+        acc += s.w[..., None] * colors[inst_gid[s.pos].long()][:, None, :]
+        T = s.T
     img = acc + T[..., None] * bg.reshape(1, 1, c)
     out = torch.cat([img, (1.0 - T)[..., None]], dim=-1)
     if return_pairs:
@@ -299,9 +321,9 @@ def blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
     grad = torch.zeros((inst_gid.shape[0], g.shape[-1]), dtype=torch.float32,
                        device=geom.device)
     pairs = [0, 0]
-    for inr, pos, w, _ in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
-                                       tiles_y, tile_h, tile_w, pairs if return_pairs else None):
-        grad[pos[inr]] = torch.einsum("tp,tpc->tc", w, g)[inr]
+    for s in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
+                          tiles_y, tile_h, tile_w, pairs if return_pairs else None):
+        grad[s.pos[s.inr]] = torch.einsum("tp,tpc->tc", s.w, g)[s.inr]
     if return_pairs:
         return grad, int(pairs[0]), int(pairs[1])
     return grad
@@ -346,6 +368,121 @@ def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
     _kernels.check(lib, err, "blend_backward")
     launch_counts["blend_backward"] += 1
     return grad[:, :c] if cp != c else grad
+
+
+# --------------------------------------------------------------------------
+# K8: blend_backward_full
+# --------------------------------------------------------------------------
+
+
+def blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
+                              g_alpha, tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
+    """The full VJP of `blend_backward_full`, by two walks (the JAX
+    package's scheme): walk A gives each pixel Total = sum u_i w_i over the
+    splats it blends (u_i = g_img . colour_i) and T_fin, the transmittance
+    after the last of them; walk B recomputes the walk and, with S_i =
+    Total - (inclusive prefix of u w),
+
+      dL/dalpha_i = u_i T_i - S_i / (1 - alpha_i) + g_alpha T_fin / (1 - alpha_i),
+
+    dL/dsigma = -alpha dL/dalpha and dL/dopac = dL/dalpha exp(-sigma) where
+    the splat blends unclamped (a splat clamped at 0.999 keeps only its
+    colour gradient w g_img). With return_pairs, also returns the pairs one
+    walk evaluates and blends (see `_walk_ranges`)."""
+    m, c = inst_gid.shape[0], colors.shape[1]
+    dev = geom.device
+    ga = g_alpha.reshape(g_img.shape[:2])
+    walk_args = (geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y, tile_h, tile_w)
+
+    def u_of(s):
+        return torch.einsum("tpc,tc->tp", g_img, colors[inst_gid[s.pos].long()])
+
+    total = torch.zeros(g_img.shape[:2], dtype=torch.float32, device=dev)
+    t_fin = torch.ones_like(total)
+    for s in _walk_ranges(*walk_args):
+        total = total + u_of(s) * s.w
+        t_fin = s.T
+    grad_col = torch.zeros((m, c), dtype=torch.float32, device=dev)
+    grad_geom = torch.zeros((m, 8), dtype=torch.float32, device=dev)
+    prefix = torch.zeros_like(total)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    pairs = [0, 0]
+    for s in _walk_ranges(*walk_args, pairs if return_pairs else None):
+        u = u_of(s)
+        prefix = prefix + u * s.w
+        inv = 1.0 / (1.0 - s.alpha)
+        dl_da = torch.where(s.use, u * s.t_before - (total - prefix) * inv + ga * t_fin * inv,
+                            zero)
+        active = s.use & (s.alpha < ALPHA_CLAMP)
+        dl_ds = torch.where(active, -s.alpha * dl_da, zero)
+        ca, cb, cc = s.rows[:, 2:3], s.rows[:, 3:4], s.rows[:, 4:5]
+        dx, dy = s.dx, s.dy
+        geo = torch.stack([
+            torch.sum(dl_ds * -(ca * dx + cb * dy), dim=1),
+            torch.sum(dl_ds * -(cc * dy + cb * dx), dim=1),
+            torch.sum(dl_ds * (0.5 * dx * dx), dim=1),
+            torch.sum(dl_ds * (dx * dy), dim=1),
+            torch.sum(dl_ds * (0.5 * dy * dy), dim=1),
+            torch.sum(torch.where(active, dl_da * s.vis, zero), dim=1),
+        ], dim=1)
+        grad_geom[s.pos[s.inr], :6] = geo[s.inr]
+        grad_col[s.pos[s.inr]] = torch.einsum("tp,tpc->tc", s.w, g_img)[s.inr]
+    if return_pairs:
+        return grad_col, grad_geom, int(pairs[0]), int(pairs[1])
+    return grad_col, grad_geom
+
+
+def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img, g_alpha,
+                        tiles_x, tiles_y, tile_h, tile_w):
+    """K8: colour and screen-space geometry gradients of every instance
+    slot of an aligned binning (the RGB pretraining backward).
+
+    geom (R, 8) and colors (R, C) f32 are the rank-permuted tables with a
+    zero sentinel row, inst_gid (M,) i32, tile_starts and tile_counts (T,)
+    i32, g_img (T, P, C) f32 the cotangent of the tile image's channels and
+    g_alpha (T, P, 1) f32 that of its alpha, already net of the background
+    term (g_alpha - g_img . bg: the forward blends bg against T_fin).
+    Returns row-major (M, C) colour and (M, 8) geometry gradients, the
+    latter [mx, my, ca, cb, cc, opac, 0, 0]; rows outside every range and
+    behind a pixel's stop are zero. (The Pallas kernel's (C, M) and (8, M)
+    lane-major outputs are a TPU layout; these rows feed K3 directly.)
+    """
+    if not _dispatch(geom):
+        return blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts,
+                                         g_img, g_alpha, tiles_x, tiles_y, tile_h, tile_w)
+    dev = geom.device
+    num_tiles = tiles_x * tiles_y
+    npix = tile_h * tile_w
+    _check_tensor("geom", geom, torch.float32, dev, ndim=2)
+    _check_tensor("colors", colors, torch.float32, dev, ndim=2)
+    _check_tensor("inst_gid", inst_gid, torch.int32, dev, ndim=1)
+    _check_tensor("g_img", g_img, torch.float32, dev, ndim=3)
+    _check_tensor("g_alpha", g_alpha, torch.float32, dev, ndim=3)
+    _check_ranges(tile_starts, tile_counts, num_tiles, dev)
+    r, c = colors.shape
+    if geom.shape != (r, 8):
+        raise ValueError(f"geom: expected ({r}, 8), got {tuple(geom.shape)}")
+    if g_img.shape != (num_tiles, npix, c):
+        raise ValueError(f"g_img: expected ({num_tiles}, {npix}, {c}), got {tuple(g_img.shape)}")
+    if g_alpha.shape != (num_tiles, npix, 1):
+        raise ValueError(f"g_alpha: expected ({num_tiles}, {npix}, 1), got {tuple(g_alpha.shape)}")
+    lib = _kernels.load(BLEND_BACKWARD_FULL_SRC)
+    cp = _padded_channels(lib, "gags_blend_backward_full_channels", c, "blend_backward_full")
+    if cp != c:  # zero channels add nothing to u = g_img . colour
+        colors = torch.nn.functional.pad(colors, (0, cp - c)).contiguous()
+        g_img = torch.nn.functional.pad(g_img, (0, cp - c)).contiguous()
+    m = inst_gid.shape[0]
+    grad_col = torch.zeros((m, cp), dtype=torch.float32, device=dev)
+    grad_geom = torch.zeros((m, 8), dtype=torch.float32, device=dev)
+    fn = lib.gags_blend_backward_full
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts), _ptr(tile_counts),
+             _ptr(g_img), _ptr(g_alpha), _ptr(grad_col), _ptr(grad_geom), num_tiles, tiles_x,
+             tile_h, tile_w, cp, _stream(geom))
+    _kernels.check(lib, err, "blend_backward_full")
+    launch_counts["blend_backward_full"] += 1
+    return (grad_col[:, :c].contiguous() if cp != c else grad_col), grad_geom
 
 
 # --------------------------------------------------------------------------

@@ -199,8 +199,11 @@ def _aligned_tile_counts(packed_p, counts_p, g_cut, tiles_x, tiles_y, chunk):
     oob = torch.full_like(gx0, ncells)  # non-kept corners land past the grid
 
     def hist(a, b):
+        # a scatter-add, not torch.bincount: on a CUDA device bincount
+        # reads the ids' maximum back to the host (a stream sync)
         ids = torch.cat([torch.where(kept, a, oob), torch.where(kept, b, oob)])
-        return torch.bincount(ids, minlength=ncells + 1)[:ncells]
+        counts = torch.zeros((ncells + 1,), dtype=torch.int64, device=dev)
+        return counts.scatter_add_(0, ids, torch.ones_like(ids))[:ncells]
 
     grid = hist(gy0 * gw + gx0, gy1 * gw + gx1) - hist(gy0 * gw + gx1, gy1 * gw + gx0)
     grid = grid.reshape(tiles_y + 1, gw)
@@ -241,11 +244,11 @@ def bin_gaussians(means2d, radii, depths, width, height, tile_w, tile_h,
     )
     total = inc[n - 1]
     # budget cut in whole Gaussians: ranks whose full rect fits in m_real
-    m_real_t = torch.tensor([m_real], dtype=torch.int32, device=dev)
+    m_real_t = torch.full((1,), m_real, dtype=torch.int32, device=dev)  # no host copy
     g_cut = torch.searchsorted(inc, m_real_t, right=True)[0]
-    num_valid = torch.where(
-        g_cut > 0, inc[torch.clamp(g_cut - 1, 0, n - 1)], torch.zeros_like(total)
-    )
+    # (index_select: indexing with a 0-d tensor reads it back to the host)
+    last = torch.index_select(inc, 0, torch.clamp(g_cut - 1, 0, n - 1).reshape(1))[0]
+    num_valid = torch.where(g_cut > 0, last, torch.zeros_like(total))
     overflow = total - num_valid
 
     # ragged→dense expansion: owning rank of every slot (kernel K6); the

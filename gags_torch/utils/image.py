@@ -1,10 +1,12 @@
 """Image resize and smoothing primitives with PyTorch's interpolation
-conventions (port of gags_tpu.utils.image), and a PNG encoder.
+conventions (port of gags_tpu.utils.image), and a PNG encoder and
+decoder.
 
 nearest: src = floor(dst * in/out); bilinear with align_corners=True:
 src = dst * (in-1)/(out-1). Written as explicit gathers, channel-LAST like
-the JAX package: (H, W, C) or (H, W). PNGs are written with zlib and
-struct from the standard library (no imaging package).
+the JAX package: (H, W, C) or (H, W). PNGs are written and read with zlib
+and struct from the standard library (no imaging package is needed for a
+PNG of the camera's size).
 """
 
 from __future__ import annotations
@@ -33,6 +35,102 @@ def encode_png(img01: np.ndarray) -> bytes:
         + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
         + _png_chunk(b"IEND", b"")
     )
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type → channels (8-bit)
+
+
+def _unfilter(filt: np.ndarray, line: np.ndarray) -> np.ndarray:
+    """Undo the five PNG filters of (H,) row types over (H, W, bpp) bytes.
+
+    A pixel's predictor reads its left, upper and upper-left neighbours,
+    so every pixel of one anti-diagonal y + x = d can be decoded at once
+    from the diagonals before it: H + W - 1 numpy steps over at most
+    min(H, W) pixels, whatever the mix of filters (a row-by-row walk would
+    step once per byte on Average and Paeth rows)."""
+    h, w, bpp = line.shape
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)  # a zero row above, a zero column left
+    line = line.astype(np.int32)
+    filt = filt.astype(np.int32)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a, b, c = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]  # left, up, upper left
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = filt[ys][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) >> 1, paeth], 0)
+        out[ys + 1, xs + 1] = (line[ys, xs] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit, non-interlaced PNG (grey, grey+alpha, RGB or RGBA)
+    with zlib and struct; returns (H, W, channels) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace}); 8-bit grey/RGB/RGBA without interlace only")
+    bpp = _PNG_CHANNELS[ctype]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"{path}: image data holds {raw.size} bytes, expected {h * (stride + 1)}")
+    rows = raw.reshape(h, stride + 1)
+    bad = np.nonzero(rows[:, 0] > 4)[0]
+    if bad.size:
+        raise ValueError(f"{path}: row {bad[0]} has unknown filter type {rows[bad[0], 0]}")
+    return _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
+
+
+def load_rgb(path: str, width: int, height: int) -> np.ndarray:
+    """An image file as (height, width, 3) uint8, the pixels the JAX package
+    loads (`Image.open(p).convert("RGB").resize((w, h))`; it then divides
+    by 255 in float32, as the RGB trainer does on the device): a PNG
+    of that size is decoded by `read_png` (grey replicated, alpha dropped,
+    as PIL's convert("RGB") does; PIL's resize to the same size is the
+    identity). Any other file or size goes through PIL when it can be
+    imported; without PIL it raises ValueError naming the file and the two
+    sizes. Nothing is resized by another method."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR" and len(head) == 29:
+        size = struct.unpack(">II", head[16:24])
+        depth, ctype, interlace = head[24], head[25], head[28]
+        if (size == (width, height) and depth == 8 and ctype in _PNG_CHANNELS
+                and not interlace):
+            px = read_png(path)
+            c = px.shape[-1]
+            return np.repeat(px[..., :1], 3, axis=-1) if c <= 2 else px[..., :3]
+    else:
+        size = None
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{path}: image size {size or 'unknown (not a PNG)'}, camera size "
+            f"{(width, height)}: without PIL (not installed) only an 8-bit grey, RGB or "
+            f"RGBA PNG of the camera's size is read") from None
+    return np.asarray(Image.open(path).convert("RGB").resize((width, height)), np.uint8)
 
 
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:

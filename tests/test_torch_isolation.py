@@ -48,6 +48,8 @@ def test_port_imports_with_jax_blocked():
         "import gags_torch.cli.serve, gags_torch.splat.render, gags_torch.splat.kernels\n"
         "import gags_torch.query, gags_torch.models.weights, gags_torch.utils.synthetic\n"
         "import gags_torch.cli.train_gad, gags_torch.gad.checkpoints\n"
+        "import gags_torch.cli.train_rgb, gags_torch.rgb.train, gags_torch.knn\n"
+        "import gags_torch.scene.densify, gags_torch.utils.metrics\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

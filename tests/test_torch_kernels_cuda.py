@@ -157,6 +157,86 @@ def test_dense_segment_sum_matches_plain(dev, segments, cdim):
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=2e-3)
 
 
+def _k8_compare(got, want, what):
+    """Column by column, each against its own scale (the conic columns are
+    thousands of times larger than mx, my and opacity). Atomics add in no
+    fixed order, and isolated splats may flip at the 1/255 or 1e-4
+    thresholds (NUMERICS.md): at most 0.1% of a column's values outside
+    1e-5 max|g| + 1e-4 rel, its mean error at most 1e-6 max|g| and 1e-3
+    mean|g|."""
+    assert torch.isfinite(got).all(), what
+    for j in range(want.shape[1]):
+        g, w = got[:, j], want[:, j]
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        outside = err > 1e-5 * scale + 1e-4 * w.abs()
+        assert scale > 0, (what, j)
+        assert float(outside.float().mean()) <= 1e-3, (what, j, int(outside.sum()),
+                                                       float(err.max()) / scale)
+        assert float(err.mean()) <= 1e-6 * scale, (what, j, float(err.mean()) / scale)
+        assert float(err.mean()) <= 1e-3 * float(w.abs().mean()), (what, j, float(err.mean()))
+
+
+@pytest.mark.parametrize("cdim,saturated", [(3, False), (3, True), (8, True), (16, False),
+                                            (16, True)])
+def test_blend_backward_full_matches_plain(dev, cdim, saturated):
+    raw = make_scene(4000, seed=4, extent=3.0 if not saturated else 0.6, feature_dim=cdim)
+    if saturated:  # near-opaque, concentrated: rays end early, alphas clamp at 0.999
+        raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, 4000).astype(np.float32)
+        raw["scales"] *= 3.0
+    cam = make_camera(320, 180, device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    cfg = RasterizeConfig(tile_h=16, tile_w=16)
+    _, binned, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"], t["opacities"],
+                                       cam.viewmat, cam.K, 320, 180, cfg)
+    perm = order_ext(binned.order.long())
+    col = torch.cat([t["features"], torch.zeros((1, cdim), device=dev)])[perm].contiguous()
+    rng = np.random.default_rng(cdim)
+    npix = 16 * 16
+    g_img = torch.as_tensor(rng.normal(size=(tx * ty, npix, cdim)), dtype=torch.float32, device=dev)
+    g_alpha = torch.as_tensor(rng.normal(size=(tx * ty, npix, 1)), dtype=torch.float32, device=dev)
+    args = (geom[perm].contiguous(), col, binned.inst_gid, binned.tile_starts, binned.tile_counts,
+            g_img, g_alpha, tx, ty, 16, 16)
+    kernels.reset_launch_counts()
+    got = kernels.blend_backward_full(*args)
+    want = kernels.blend_backward_full_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["blend_backward_full"] == 1
+    if saturated:
+        out = kernels.blend_forward_plain(*args[:5], torch.zeros(cdim, device=dev), tx, ty, 16, 16)
+        assert int((out[..., -1] > 0.999).sum()) > 100  # many rays end early
+    _k8_compare(got[0], want[0], f"colour C={cdim}")
+    _k8_compare(got[1][:, :6], want[1][:, :6], f"geometry C={cdim}")
+    assert not got[1][:, 6:].any()
+
+
+def test_rasterize_geometry_gradient_on_card_matches_cpu(dev):
+    """Gradients for means, quats, scales, opacities and colours through
+    K1, K8, K3 and the projection on the card equal the plain versions' on
+    the CPU."""
+    raw = make_scene(3000, seed=2, extent=3.0)
+    cfg = RasterizeConfig(tile_h=16, tile_w=16, geometry_grads=True)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        cam = make_camera(128, 96, device=d)
+        ts = [torch.as_tensor(raw[k], device=d).requires_grad_(True)
+              for k in ("means", "quats", "scales", "opacities", "features")]
+        res = rasterize(*ts, cam.viewmat, cam.K, 128, 96, config=cfg, device=d)
+        w = torch.linspace(-1, 1, res.image.numel(), device=d).reshape(res.image.shape)
+        ((res.image * w).sum() + res.alpha.sum()).backward()
+        grads[d.type] = [t.grad.cpu() for t in ts]
+    # the two devices round the projection differently, so a splat may
+    # flip at a threshold: at most 0.1% of values outside 1e-4 max|g| +
+    # 1e-3 rel, mean error at most 1e-5 max|g|
+    for name, a, b in zip(("means", "quats", "scales", "opacities", "colors"),
+                          grads["cuda"], grads["cpu"]):
+        scale = float(b.abs().max())
+        err = (a - b).abs()
+        assert scale > 0 and torch.isfinite(a).all(), name
+        assert float((err > 1e-4 * scale + 1e-3 * b.abs()).float().mean()) <= 1e-3, name
+        assert float(err.mean()) <= 1e-5 * scale, name
+
+
 def test_rasterize_gradient_on_card_matches_cpu(dev):
     """The colour gradient through K1, K2 and K3 on the card equals the
     plain versions' on the CPU."""

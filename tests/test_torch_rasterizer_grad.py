@@ -127,9 +127,14 @@ def test_unaligned_backward_and_geometry_grads_raise():
                      config=tr.RasterizeConfig(**TILE, aligned=False), device="cpu")
     with pytest.raises(ValueError, match="aligned"):
         r.image.sum().backward()
-    with pytest.raises(NotImplementedError):
-        tr.rasterize(*_t(geo), c, *_t((vm, K)), W, H,
-                     config=tr.RasterizeConfig(**TILE, geometry_grads=True), device="cpu")
+    # geometry gradients (K8) need the aligned layout too: the unaligned
+    # forward runs, its backward raises
+    m = torch.as_tensor(geo[0]).requires_grad_(True)
+    r = tr.rasterize(m, *_t(geo[1:]), c, *_t((vm, K)), W, H,
+                     config=tr.RasterizeConfig(**TILE, aligned=False, geometry_grads=True),
+                     device="cpu")
+    with pytest.raises(ValueError, match="aligned"):
+        (r.image.sum() + r.alpha.sum()).backward()
 
 
 def test_permute_rows_backward_is_inverse_gather():

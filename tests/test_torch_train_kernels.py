@@ -135,9 +135,13 @@ def test_cpu_wrappers_launch_no_kernel():
     kernels.sorted_segment_sum(gi, binned.red.slot_to_pos, binned.red.slot_rank,
                                binned.red.chunk_block, 61)
     kernels.dense_segment_sum(torch.ones((5, 2)), torch.arange(5, dtype=torch.int32), 3)
+    gc, gg = kernels.blend_backward_full(geom, colors, binned.inst_gid, binned.tile_starts,
+                                         binned.tile_counts, g, torch.zeros_like(g[..., :1]),
+                                         tx, ty, TH, TW)
+    assert gc.shape == (binned.inst_gid.shape[0], 3) and gg.shape == (binned.inst_gid.shape[0], 8)
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
-        "blend_forward_aligned", "blend_backward", "sorted_segment_sum",
+        "blend_forward_aligned", "blend_backward", "blend_backward_full", "sorted_segment_sum",
         "dense_segment_sum", "blend_forward", "expand_gid"}
 
 

@@ -9,7 +9,8 @@ Phases, each of which fails the run:
      (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
-     torch.searchsorted (the library yardstick);
+     torch.searchsorted (the library yardstick), by CUDA events around
+     back-to-back calls and as device time per call (torch.profiler);
   4. K5 blend_forward vs its plain version on the full 1280x720 frame, for
      the 16 feature channels and the 3 SH colour channels: atol 2e-5 /
      rtol 1e-4 with the NUMERICS.md allowance for isolated threshold flips
@@ -38,6 +39,27 @@ Phases, each of which fails the run:
      bounds and index_add_ yardsticks (K4 at 1025 and 4097 segments, for
      2 and 33 channels); profile one training step;
   9. serve the trained model dir (load_server) and check one relevancy map;
+ 9b. inference options: (a) K7 expand_keys against its plain version on
+     the projection of make_scene(250_000) at 1280x720 and of
+     make_scene(1_000_000) at 1920x1080 (budget factor 4), cull off and
+     on: keys and per-chunk counts exact, the fused binning equal to the
+     K6 binning field by field, fewer instances with the cull, K5's image
+     the same with the cull off and on; K7's device time per launch
+     (torch.profiler; back-to-back launches between CUDA events measure
+     the host's launch rate), bound, plain time and the unfused chain's
+     (K6 + gathers + key ops); (b) K5's
+     fast_color_rows, blend_bf16 (also against the f32 image at its
+     contract), exit_stats (totals exact, at most STATS_MOVED_TILES tiles
+     moved by a threshold flip) and block_exit (bit-identical) on the
+     serve frame, and exit_stats once more on a saturated 1280x720 frame
+     (SAT_GAUSSIANS dense, near-opaque splats) where tiles must stop
+     early; (c) gags_torch.cli.render.run on phase 7's model dir
+     (four cameras at 1280x720, -r 1) with an autotune store of its own:
+     RGB+ED, then --feature_mode
+     --feature_npy --autotune, each with the launch counts set to 0 just
+     before and read just after (autotune times, winner, frames/s, K7
+     launches), then the cameras once more with fused_keys and tile_cull:
+     K7 once per frame, the images equal to the unfused render's;
  10. RGB pretraining: write a COLMAP scene to a temporary directory with
      the port's own writers (ground-truth PNGs of make_scene(300_000,
      seed=0, extent=3.0) with SH-3 colours rendered by K5 from eight
@@ -63,7 +85,7 @@ Phases, each of which fails the run:
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
      0: its PSNR against the ground truth must exceed the seed cloud's;
  14. print {"kernels": [...]} with times, bounds and launch counts of
-     K1-K6 and K8, then the card's name and power limit, then the final
+     K1-K8, then the card's name and power limit, then the final
      {"ok": true, ...}.
 """
 
@@ -133,6 +155,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of fn: the sum of its kernels' device time
+    (torch.profiler), where back-to-back launches timed by events measure
+    the host's launch rate instead (kernels of a few microseconds behind a
+    Python wrapper)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    if busy <= 0:
+        fail("torch.profiler recorded no device time")
+    return busy / 1e3 / iters
 
 
 def flip_tolerant_compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
@@ -205,6 +248,7 @@ def ptxas_summary(log: str) -> list[str]:
         if "Compiling entry function" in line:
             m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line.split("'")[1])
             name = m.group(1) + (f"[C={m.group(2)}]" if m.group(2) else "")
+            name += "[bf16]" if "bfloat16" in line else ""
         elif "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif "registers" in line and name:
@@ -287,10 +331,12 @@ def write_train_fixture(root: str) -> str:
     return ply
 
 
-def train_phase(dev: torch.device, gpu: str) -> list:
+def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
     """Phases 7-9: train through the CLI entry point, hold K1-K4 against
     their plain versions on the run's own data, profile a step, serve the
-    trained model dir. Returns the kernels' report entries."""
+    trained model dir; then `after_serving(scene dir, model dir)` (phase
+    9b) while both exist. Returns the kernels' report entries and what
+    after_serving returned."""
     from gags_torch.cli.serve import load_server
     from gags_torch.cli.train_gad import RunConfig, _bin_cache, run
     from gags_torch.core.camera import Camera
@@ -543,6 +589,8 @@ def train_phase(dev: torch.device, gpu: str) -> list:
             fail(f"relevancy of the trained model: {tuple(rel.shape)}, finite "
                  f"{bool(torch.isfinite(rel).all())}")
         print(f"# served the trained model dir: relevancy max {float(rel.max()):.4f}", flush=True)
+        del server, state, feats, feat_map, batch, cache
+        extra = after_serving(root, model)
 
     for r in report:
         r["launches"] = launches[r["name"]]
@@ -551,7 +599,321 @@ def train_phase(dev: torch.device, gpu: str) -> list:
         r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
         r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
     report[0]["train_steps"] = steps
-    return report
+    return report, extra
+
+
+K7_SHAPES = (("1280x720/250k", 1280, 720, 250_000), ("1920x1080/1M", 1920, 1080, 1_000_000))
+STATS_MOVED_TILES = 2  # tiles whose stop may move at a threshold flip (of 920)
+SAT_GAUSSIANS = 16_000  # the saturated frame: tens of its 920 tiles stop early
+
+
+def k7_phase(dev: torch.device, gpu: str) -> dict:
+    """Phase 9b (a): K7 against its plain version on a real projection at
+    the serve shape and at 1080p/1M (the shape whose packing needs JAX's
+    u32 key tier), cull off and on: keys and counts exact, the fused
+    binning equal to the K6 binning field by field, fewer instances with
+    the cull, K5's image the same with the cull off and on; K7's time,
+    bound, plain time and the unfused chain's time (K6 + gathers + key
+    ops, the yardstick: no single PyTorch call computes K7)."""
+    from gags_torch.splat import kernels, tiles
+    from gags_torch.splat.projection import project_gaussians
+    from gags_torch.splat.rasterizer import RasterizeConfig, _cull_rows, _geom_table, order_ext
+    from gags_torch.utils.synthetic import make_camera, make_scene
+
+    cfg = RasterizeConfig(aligned=False)
+    th, tw = cfg.tile_h, cfg.tile_w
+    out = {}
+    for label, w, h, n in K7_SHAPES:
+        raw = make_scene(n, seed=0, extent=3.0)
+        t = {k: torch.as_tensor(raw[k], device=dev)
+             for k in ("means", "quats", "scales", "opacities", "features")}
+        del raw
+        cam = make_camera(w, h, device=dev)
+        with torch.no_grad():
+            proj = project_gaussians(t["means"], t["quats"], t["scales"], cam.viewmat, cam.K, w,
+                                     h, opacities=t["opacities"])
+            tx, ty = -(-w // tw), -(-h // th)
+            order, packed_p, offsets, inc = tiles.depth_ranks(
+                proj.means2d, proj.radii_x, proj.depths, tw, th, tx, ty, radii_y=proj.radii_y)
+            budget = cfg.instance_budget(n)
+            mk = tiles.expansion_slots(budget, cfg.chunk)
+            shift = max(1, n.bit_length())
+            cull_rows = _cull_rows(proj, t["opacities"])
+            geom = _geom_table(proj, t["opacities"])
+        bins, images = {}, {}
+        for cull in (False, True):
+            what = f"K7 expand_keys {label} cull {'on' if cull else 'off'}"
+            bins[cull] = {fused: tiles.bin_gaussians(
+                proj.means2d, proj.radii_x, proj.depths, w, h, tw, th, budget=budget,
+                chunk=cfg.chunk, radii_y=proj.radii_y, cull_rows=cull_rows if cull else None,
+                fused_keys=fused) for fused in (False, True)}
+            for field in ("inst_gid", "tile_starts", "tile_counts", "num_valid", "overflow",
+                          "order"):
+                if not torch.equal(getattr(bins[cull][False], field),
+                                   getattr(bins[cull][True], field)):
+                    fail(f"{what}: the fused binning's {field} differs from the K6 binning's")
+            b = bins[cull][True]
+            if int(b.overflow) != 0:
+                fail(f"{what}: overflow {int(b.overflow)}")
+            nv = bins[False][True].num_valid  # the uncut count: K7's input
+            kw = dict(shift=shift, tiles_x=tx, tile_w=tw, tile_h=th,
+                      cull_p=cull_rows[order].contiguous() if cull else None)
+            a = (offsets, packed_p, nv, mk)
+            keys, counts = kernels.expand_keys(*a, **kw)
+            keys_p, counts_p = kernels.expand_keys_plain(*a, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(keys, keys_p) and torch.equal(counts, counts_p)):
+                fail(f"{what}: keys differ from the plain version at "
+                     f"{int((keys != keys_p).sum())} of {mk} slots, counts at "
+                     f"{int((counts != counts_p).sum())} chunks")
+            if int(counts.sum()) != int(b.num_valid):
+                fail(f"{what}: counts sum {int(counts.sum())} != num_valid {int(b.num_valid)}")
+            perm = order_ext(b.order.long())
+            cols = torch.cat([t["features"], torch.zeros((1, 16), device=dev)])[perm].contiguous()
+            images[cull] = kernels.blend_forward(geom[perm].contiguous(), cols, b.inst_gid,
+                                                 b.tile_starts, b.tile_counts,
+                                                 torch.zeros(16, device=dev), tx, ty, th, tw)
+            nbytes = n * (8 + (24 if cull else 0)) + 4 + mk * 8 + (mk // 1024) * 4
+            ops = mk * (4 * int(n).bit_length() + 20 + (70 if cull else 0))
+            r = dict(
+                instances=int(b.num_valid), slots=mk, ranks=n,
+                # device time per launch (torch.profiler); events_ms, back to
+                # back launches between CUDA events, is the host's launch rate
+                ms=device_ms(lambda: kernels.expand_keys(*a, **kw)),
+                events_ms=cuda_ms(lambda: kernels.expand_keys(*a, **kw), 500, warmup=50),
+                plain_ms=device_ms(lambda: kernels.expand_keys_plain(*a, **kw)),
+                chain_ms=device_ms(lambda: kernels.slot_keys(kernels.expand_gid(offsets, mk),
+                                                             offsets, packed_p, nv, **kw)),
+                chain_events_ms=cuda_ms(lambda: kernels.slot_keys(
+                    kernels.expand_gid(offsets, mk), offsets, packed_p, nv, **kw), 50),
+                bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3)
+            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            out[f"{label}, cull {'on' if cull else 'off'}"] = r
+            print(f"# {what}: exact; {r} ({gpu})", flush=True)
+        if not int(bins[True][True].num_valid) < int(bins[False][True].num_valid):
+            fail(f"K7 {label}: the cull kept {int(bins[True][True].num_valid)} of "
+                 f"{int(bins[False][True].num_valid)} instances")
+        same = torch.equal(images[True], images[False])
+        if not same:  # a corner pixel at the alpha floor may flip (NUMERICS.md)
+            flip_tolerant_compare(images[True], images[False], f"K5 image, {label}, cull on/off")
+        n_diff = int((images[True] != images[False]).sum())
+        out[f"{label}, cull on"]["image_values_changed_by_cull"] = n_diff
+        print(f"# K5 image at {label} with the cull on and off: identical {same} "
+              f"({n_diff} values differ)", flush=True)
+        del t, proj, bins, images, geom, cull_rows, keys, keys_p, order, packed_p, offsets, inc
+        torch.cuda.empty_cache()
+    return out
+
+
+def saturated_frame(dev: torch.device) -> tuple:
+    """K5's arguments on a 1280x720 frame whose centre tiles saturate: the
+    card test's dense, near-opaque scene (extent 0.6, scales x3, opacities
+    0.9-0.9999) at the serve width. No tile of the serve frame stops
+    early, so there the counters' stop lanes (0, 2) equal their totals."""
+    from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext
+    from gags_torch.utils.synthetic import make_camera, make_scene
+
+    raw = make_scene(SAT_GAUSSIANS, seed=1, extent=0.6)
+    raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, SAT_GAUSSIANS).astype(
+        np.float32)
+    raw["scales"] *= 3.0
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    cam = make_camera(WIDTH, HEIGHT, device=dev)
+    cfg = RasterizeConfig(aligned=False, budget_factor=16)  # ~10 tiles per splat
+    _, b, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"], t["opacities"],
+                                  cam.viewmat, cam.K, WIDTH, HEIGHT, cfg)
+    if int(b.overflow) != 0:
+        fail(f"saturated frame: binning overflow {int(b.overflow)}")
+    perm = order_ext(b.order.long())
+    cols = torch.cat([t["features"], torch.zeros((1, 16), device=dev)])[perm].contiguous()
+    return (geom[perm].contiguous(), cols, b.inst_gid, b.tile_starts, b.tile_counts,
+            torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w)
+
+
+def exit_stats_compare(st_k: torch.Tensor, st_p: torch.Tensor, what: str) -> dict:
+    """K5's (T, 8, 128) counters against the plain version's: nothing
+    outside row 0, lanes 0-4; the totals (lanes 1, 3) exact; the stop
+    lanes (0, 2) exact on all but STATS_MOVED_TILES tiles (a threshold
+    flip moves a stop); lane 4 within 1e-4 on the others."""
+    s, sp = st_k[:, 0, :5], st_p[:, 0, :5]
+    if st_k[:, 1:].any() or st_k[:, 0, 5:].any():
+        fail(f"{what}: exit_stats writes outside row 0, lanes 0-4")
+    if not (torch.equal(s[:, 1], sp[:, 1]) and torch.equal(s[:, 3], sp[:, 3])):
+        fail(f"{what}: exit_stats totals (lanes 1, 3) differ from the plain version")
+    moved = (s[:, 0] != sp[:, 0]) | (s[:, 2] != sp[:, 2])
+    lane4 = float((s[~moved, 4] - sp[~moved, 4]).abs().max())
+    r = dict(tiles=int(s.shape[0]), tiles_moved=int(moved.sum()), lane4_max_abs_err=lane4,
+             tiles_stopped_early=int((s[:, 2] < s[:, 3]).sum()),
+             plain_tiles_stopped_early=int((sp[:, 2] < sp[:, 3]).sum()),
+             chunks_done=int(s[:, 2].sum()), chunks_total=int(s[:, 3].sum()))
+    if r["tiles_moved"] > STATS_MOVED_TILES or lane4 > 1e-4:
+        fail(f"{what}: exit_stats disagree with the plain version: {r}")
+    return r
+
+
+def k5_options_phase(serve: dict, gpu: str) -> dict:
+    """Phase 9b (b): K5's options against their plain versions on the
+    serve frame (16 feature channels): fast_color_rows with exit_stats and
+    blend_bf16 at phase 4's tolerance, blend_bf16 also against the f32
+    image at its contract, the counters exact but for STATS_MOVED_TILES,
+    block_exit bit-identical; then the counters once more on the
+    saturated frame, where some tile must stop early."""
+    from gags_torch.splat import kernels
+
+    args, chunk = serve["args"], serve["chunk"]
+    c = args[1].shape[1]
+    f32 = kernels.blend_forward(*args)
+    res = {"f32": dict(ms=cuda_ms(lambda: kernels.blend_forward(*args), 20))}
+    if not torch.equal(kernels.blend_forward(*args, block_exit=True), f32):
+        fail("K5 block_exit changes the image")
+    out_k, st_k = kernels.blend_forward(*args, fast_color_rows=True, exit_stats=True, chunk=chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, st_p = kernels.blend_forward_plain(*args, fast_color_rows=True, exit_stats=True,
+                                              chunk=chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(out_k, kernels.blend_forward(*args, fast_color_rows=True)):
+        fail("K5 exit_stats changes the image")
+    res["fast_color_rows"] = dict(
+        ms=cuda_ms(lambda: kernels.blend_forward(*args, fast_color_rows=True), 20),
+        plain_ms=plain_ms, **flip_tolerant_compare(out_k, out_p, f"K5 fast_color_rows C={c}"))
+    res["exit_stats"] = dict(
+        ms=cuda_ms(lambda: kernels.blend_forward(*args, fast_color_rows=True, exit_stats=True,
+                                                 chunk=chunk), 20),
+        **exit_stats_compare(st_k, st_p, "K5 serve frame"))
+    print(f"# K5 exit_stats: {res['exit_stats']} ({gpu})", flush=True)
+
+    sat = saturated_frame(args[0].device)
+    out_s, st_s = kernels.blend_forward(*sat, exit_stats=True, chunk=chunk)
+    out_sp, st_sp = kernels.blend_forward_plain(*sat, exit_stats=True, chunk=chunk)
+    torch.cuda.synchronize()
+    if not torch.equal(out_s, kernels.blend_forward(*sat)):
+        fail("K5 exit_stats changes the saturated frame's image")
+    r = dict(instances=int(sat[4].sum()), **exit_stats_compare(st_s, st_sp, "K5 saturated frame"),
+             **flip_tolerant_compare(out_s, out_sp, "K5 saturated frame C=16"))
+    res["exit_stats_saturated"] = r
+    print(f"# K5 exit_stats on the saturated frame ({SAT_GAUSSIANS} splats): {r} ({gpu})",
+          flush=True)
+    if r["tiles_stopped_early"] <= 0:
+        fail(f"K5 saturated frame: no tile stopped early, the stop lanes went untested: {r}")
+    del sat, out_s, st_s, out_sp, st_sp
+    out_b = kernels.blend_forward(*args, blend_bf16=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_bp = kernels.blend_forward_plain(*args, blend_bf16=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    res["blend_bf16"] = dict(ms=cuda_ms(lambda: kernels.blend_forward(*args, blend_bf16=True), 20),
+                             plain_ms=plain_ms,
+                             **flip_tolerant_compare(out_b, out_bp, f"K5 blend_bf16 C={c}"))
+    scale = float(f32[..., :c].abs().max())
+    d = (out_b[..., :c] - f32[..., :c]).abs()
+    contract = dict(max_rel=float(d.max()) / scale, mean_rel=float(d.mean()) / scale,
+                    alpha_max_abs=float((out_b[..., c] - f32[..., c]).abs().max()))
+    res["blend_bf16"]["vs_f32"] = contract
+    print(f"# K5 blend_bf16 vs the f32 image: {contract} (contract 5e-2, 5e-3, 0.03)", flush=True)
+    if contract["max_rel"] > 5e-2 or contract["mean_rel"] > 5e-3 or contract["alpha_max_abs"] > 0.03:
+        fail(f"K5 blend_bf16 breaks its contract against f32: {contract}")
+    print(f"# K5 options at 1280x720, C={c}: f32 {res['f32']['ms']:.4f} ms, bf16 rows "
+          f"{res['fast_color_rows']['ms']:.4f} ms, bf16 blend {res['blend_bf16']['ms']:.4f} ms, "
+          f"with exit_stats {res['exit_stats']['ms']:.4f} ms ({gpu})", flush=True)
+    return res
+
+
+def render_cli_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 9b (c): gags_torch.cli.render on phase 7's model dir, its four
+    cameras at 1280x720 (-r 1): RGB+ED, then --feature_mode --feature_npy
+    --autotune, each with the launch counts set to 0 just before and read
+    just after; then the same cameras with fused_keys and tile_cull: K7
+    once per frame, the images equal to the unfused render's. The
+    autotune store is a file beside `root` for this phase only: a winner
+    persisted by an earlier run of this checkout would skip the timing,
+    and with it K7's launches."""
+    from gags_torch.cli import render as rcli
+    from gags_torch.scene.dataset import camera_from_info, detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat import autotune, kernels
+    from gags_torch.splat.rasterizer import RasterizeConfig
+    from gags_torch.splat.render import render
+
+    runs = {}
+    store = autotune.PERSIST_PATH
+    autotune.PERSIST_PATH = os.path.join(os.path.dirname(root), "tune_cache.json")
+    autotune._CACHE.clear()
+    try:
+        for label, kw in (("RGB+ED", dict(render_mode="RGB+ED")),
+                          ("features", dict(feature_mode=True, feature_npy=True, autotune=True))):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            runs[label] = rcli.run(model, root, TRAIN_STEPS, resolution=1, device=str(dev),
+                                   **kw)["train"]
+            torch.cuda.synchronize()
+            runs[label]["launches"] = {k: v for k, v in kernels.launch_counts.items() if v}
+    finally:
+        autotune.PERSIST_PATH = store
+    for label, rep in runs.items():
+        launches = rep["launches"]
+        print(f"# render CLI {label}: {rep['frames']} frames at {TRAIN_SRC_W}x{TRAIN_SRC_H}, "
+              f"{rep['frames_per_s']:.2f} frames/s ({rep['seconds']:.2f} s, PNG/npy writes "
+              f"included), autotune {rep['autotune'] or 'not asked'}, K7 launches "
+              f"{launches.get('expand_keys', 0)}, launches {launches} ({gpu})", flush=True)
+        if launches.get("blend_forward", 0) < rep["frames"]:
+            fail(f"render CLI {label}: K5 launched {launches.get('blend_forward', 0)} times for "
+                 f"{rep['frames']} frames")
+        if launches.get("expand_gid", 0) + launches.get("expand_keys", 0) < rep["frames"]:
+            fail(f"render CLI {label}: neither K6 nor K7 bins every frame: {launches}")
+    if "winner" not in runs["features"]["autotune"]:
+        fail(f"the render CLI's --autotune timed nothing: {runs['features']['autotune']}")
+    if runs["features"]["launches"].get("expand_keys", 0) <= 0:
+        fail("K7 expand_keys was not launched by the render CLI's autotune")
+    base = os.path.join(model, "train", f"ours_{TRAIN_STEPS}")
+    info = detect_and_load(root, foundation_model="none")
+    names = [os.path.splitext(ci.name)[0] for ci in info.train_cameras]
+    for name in names:
+        depth = np.load(os.path.join(base, "depth", name + "_depth.npy"))
+        fmap = np.load(os.path.join(base, "saved_feature", name + "_fmap_CxHxW.npy"))
+        if depth.shape != (TRAIN_SRC_H, TRAIN_SRC_W) or not np.isfinite(depth).all():
+            fail(f"render CLI depth {name}: {depth.shape}")
+        if fmap.shape != (16, TRAIN_SRC_H, TRAIN_SRC_W) or not np.isfinite(fmap).all():
+            fail(f"render CLI feature map {name}: {fmap.shape}")
+        for sub in ("renders", "depth", "feature_pca", "scale_map"):
+            path = os.path.join(base, sub, name + ("_depth" if sub == "depth" else "") + ".png")
+            with open(path, "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    fail(f"render CLI wrote no PNG at {path}")
+
+    scene = GaussianScene.from_ply(os.path.join(model, "point_cloud", f"iteration_{TRAIN_STEPS}",
+                                                "point_cloud.ply"), device=dev)
+    cams = [camera_from_info(ci, 1) for ci in info.train_cameras]
+    geo = dict(means=scene.means, quats=scene.quats, scales=scene.scales,
+               opacities=scene.opacities, semantic_features=scene.semantic_features,
+               feature_mode=True, bg_color=torch.zeros(3, device=dev), device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fused = [render(cam, config=RasterizeConfig(aligned=False, fused_keys=True, tile_cull=True),
+                    **geo).render for cam in cams]
+    torch.cuda.synchronize()
+    k7 = kernels.launch_counts["expand_keys"]
+    if k7 != len(cams) or kernels.launch_counts["expand_gid"] != 0:
+        fail(f"fused render: K7 launched {k7} times for {len(cams)} frames "
+             f"(K6 {kernels.launch_counts['expand_gid']})")
+    n_diff = 0
+    for i, cam in enumerate(cams):
+        ref = render(cam, config=RasterizeConfig(aligned=False), **geo).render
+        if not torch.equal(fused[i], ref):
+            flip_tolerant_compare(fused[i], ref, f"fused + culled render, camera {i}")
+            n_diff += int((fused[i] != ref).sum())
+    print(f"# fused_keys + tile_cull render of {len(cams)} cameras: K7 launched {k7} times; "
+          f"{n_diff} values differ from the unfused render", flush=True)
+    return dict(runs=runs, fused_render_launches=k7, fused_render_values_changed=n_diff)
+
+
+def options_phase(root: str, model: str, dev: torch.device, gpu: str, serve: dict) -> dict:
+    """Phase 9b: K7 (a), K5's options (b), the render CLI (c)."""
+    return dict(k7=k7_phase(dev, gpu), k5=k5_options_phase(serve, gpu),
+                render=render_cli_phase(root, model, dev, gpu))
 
 
 def encode_png_paeth(a: np.ndarray) -> bytes:
@@ -922,6 +1284,12 @@ def main() -> int:
         ms=cuda_ms(lambda: kernels.expand_gid(offsets, slots), 50),
         plain_ms=cuda_ms(lambda: kernels.expand_gid_plain(offsets, slots), 50),
         library_ms=cuda_ms(lambda: torch.searchsorted(offsets, idx, right=True), 50),
+        # the same three as device time per call (torch.profiler): the events
+        # above time back-to-back launches, which a few-microsecond kernel
+        # behind a Python wrapper leaves host-bound
+        device_ms=device_ms(lambda: kernels.expand_gid(offsets, slots)),
+        plain_device_ms=device_ms(lambda: kernels.expand_gid_plain(offsets, slots)),
+        library_device_ms=device_ms(lambda: torch.searchsorted(offsets, idx, right=True)),
     )
     k6_bytes = offsets.numel() * 4 + slots * 4
     k6_ops = slots * (int(offsets.numel()).bit_length() * 4 + 4)
@@ -1060,8 +1428,14 @@ def main() -> int:
     flip_tolerant_compare(res.image, ref_img, "rasterize vs oracle (3000 Gaussians, 160x96)")
     flip_tolerant_compare(res.alpha, ref_alpha, "rasterize alpha vs oracle")
 
-    # -- 7-9. train, K1-K4, serve the trained model ------------------------------
-    train_kernels = train_phase(dev, gpu)
+    # -- 7-9. train, K1-K4, serve the trained model; 9b. inference options -------
+    cols_f = torch.cat([scene.semantic_features, torch.zeros((1, 16), device=dev)])[perm]
+    serve_k5 = dict(chunk=cfg.chunk, args=(
+        geom_p, cols_f.contiguous(), binned.inst_gid, binned.tile_starts, binned.tile_counts,
+        torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w))
+    train_kernels, options = train_phase(
+        dev, gpu, lambda root, model: options_phase(root, model, dev, gpu, serve_k5))
+    del serve_k5, cols_f
 
     # -- 10-13. RGB pretraining, K8 ---------------------------------------------
     rgb_kernels = [rgb_phase(dev, gpu)]
@@ -1084,6 +1458,7 @@ def main() -> int:
             "bound_ms": max(k6["bytes_ms"], k6["ops_ms"]),
             "bound_by": "bytes" if k6["bytes_ms"] >= k6["ops_ms"] else "operations",
             "library_ms": k6["library_ms"], "slots": slots,
+            **{k: k6[k] for k in ("device_ms", "plain_device_ms", "library_device_ms")},
         },
         {
             "name": "blend_forward", "id": "K5", "route": "cuda",
@@ -1095,6 +1470,7 @@ def main() -> int:
             "bound_ms": max(f16["bytes_ms"], f16["ops_ms"]),
             "bound_by": "bytes" if f16["bytes_ms"] >= f16["ops_ms"] else "operations",
             "library_ms": None,
+            "by_option": options["k5"],
             "by_channels": {
                 str(v["channels"]): {
                     "ms": v["ms"], "plain_ms": v["plain_ms"],
@@ -1106,6 +1482,27 @@ def main() -> int:
             },
         },
     ]}
+    k7 = options["k7"]
+    head = k7["1280x720/250k, cull off"]
+    render_runs = options["render"]["runs"]
+    kernels_line["kernels"].append({
+        "name": "expand_keys", "id": "K7", "route": "cuda",
+        "source": "gags_torch/splat/csrc/expand_keys.cu",
+        "replaces": "gags_tpu/splat/pallas_kernel.py:1763",
+        "launches": sum(r["launches"].get("expand_keys", 0) for r in render_runs.values()),
+        "check": "exact", "max_abs_err": 0.0,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "yardstick_ms": head["chain_ms"],
+        "yardstick": "the unfused chain it replaces: K6 + gathers + key ops (kernels.slot_keys)",
+        "timing": "ms, plain_ms, yardstick_ms: device time per call (torch.profiler); "
+                  "events_ms: back-to-back launches between CUDA events",
+        "events_ms": head["events_ms"],
+        "fused_render_launches": options["render"]["fused_render_launches"],
+        "by_shape": k7,
+        "render_cli": {k: {kk: r[kk] for kk in ("frames", "seconds", "frames_per_s",
+                                                 "autotune", "launches")}
+                       for k, r in render_runs.items()},
+    })
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")

@@ -15,8 +15,13 @@ server. PNGs are encoded with zlib and struct from the standard library
 (utils/image.encode_png).
 
 Run: python -m gags_torch.cli.serve -m <model_path> [--iteration N]
+     [--autotune] [--autotune_res 1280x720]
 The model directory holds point_cloud/iteration_N/point_cloud.ply (with
 semantic_* features) and decoders.pt (see models/weights.save_decoders).
+The rasterizer config is the persisted autotune winner of the
+--autotune_res shape where one exists (bf16 variants allowed: feature and
+relevancy serving tolerate their contract), or with --autotune the fastest
+variant timed on the card at start-up (splat/autotune.py).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from gags_torch.models.weights import load_decoder_state
 from gags_torch.query.grounding import decode_map_rows
 from gags_torch.query.relevancy import heatmap_to_mask, majority_smooth, max_across_levels
 from gags_torch.scene.gaussian_data import GaussianScene
+from gags_torch.splat.autotune import autotune_config, load_persisted
 from gags_torch.splat.rasterizer import RasterizeConfig
 from gags_torch.splat.render import render
 from gags_torch.utils.colormaps import apply_pca_colormap, turbo
@@ -202,9 +208,35 @@ def make_handler(server: SceneServer):
     return Handler
 
 
-def load_server(model_path, iteration, text_embeds=None, device="cuda") -> SceneServer:
+def serve_config(scene: GaussianScene, autotune: bool, autotune_res, device) -> RasterizeConfig:
+    """The serving rasterizer config at `autotune_res` (w, h): timed now
+    (autotune), else the persisted winner (bf16 allowed, as in JAX), else
+    the default unaligned config."""
+    raster = RasterizeConfig(aligned=False)
+    if not autotune_res:
+        return raster
+    w, h = autotune_res
+    if autotune:
+        from gags_torch.utils.synthetic import make_camera
+
+        c0 = make_camera(w, h, device=device)
+        return autotune_config(
+            scene.means, scene.quats, scene.scales, scene.opacities, scene.semantic_features,
+            c0.viewmat, c0.K, w, h, base=RasterizeConfig(aligned=False, fast_color_rows=True),
+            allow_bf16=True, verbose=True, device=device)
+    tuned = load_persisted(w, h, scene.num_gaussians, int(scene.semantic_features.shape[1]),
+                           allow_bf16=True)
+    if tuned is not None:
+        print("# serve: persisted tuned config reused", flush=True)
+        return tuned
+    return raster
+
+
+def load_server(model_path, iteration, text_embeds=None, device="cuda", autotune=False,
+                autotune_res=None) -> SceneServer:
     """SceneServer from point_cloud/iteration_N/point_cloud.ply (features from
-    the semantic_* fields) and decoders.pt in `model_path`."""
+    the semantic_* fields) and decoders.pt in `model_path`, with the
+    rasterizer config of `serve_config`."""
     dev = resolve_device(device)
     ply = os.path.join(model_path, "point_cloud", f"iteration_{iteration}", "point_cloud.ply")
     scene = GaussianScene.from_ply(ply, device=dev)
@@ -220,7 +252,8 @@ def load_server(model_path, iteration, text_embeds=None, device="cuda") -> Scene
     if text_embeds:
         data = np.load(text_embeds)
         text = ([str(l) for l in data["labels"]], data["pos"], data["neg"])
-    return SceneServer(scene, decoder, text_embeds=text, device=dev)
+    return SceneServer(scene, decoder, text_embeds=text, device=dev,
+                       raster=serve_config(scene, autotune, autotune_res, dev))
 
 
 def main(argv=None):
@@ -231,9 +264,15 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--autotune", action="store_true",
+                   help="time the rasterizer variants at start-up and serve with the fastest")
+    p.add_argument("--autotune_res", default="1280x720",
+                   help="WxH of the start-up autotune and of the persisted-winner lookup")
     args = p.parse_args(argv)
+    w, h = (int(x) for x in args.autotune_res.split("x"))
     srv = load_server(args.model_path, args.iteration,
-                      text_embeds=args.text_embeds or None, device=args.device)
+                      text_embeds=args.text_embeds or None, device=args.device,
+                      autotune=args.autotune, autotune_res=(w, h))
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(srv))
     print(f"serving {args.model_path} on http://{args.host}:{args.port} "
           f"(/health /render /relevancy)", flush=True)

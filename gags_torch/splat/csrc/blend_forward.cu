@@ -38,8 +38,38 @@
 // each thread walks the batch sequentially. The block stops as soon as
 // __syncthreads_count reports no live pixel. The channel count is a
 // template parameter so the accumulators stay in registers.
+//
+// K5's inference options (kernels.blend_forward):
+//   fast_color_rows  the colour table is bf16 (the wrapper rounds it to
+//                    nearest even, as astype(jnp.bfloat16)): the colour type
+//                    is a template parameter, rows are staged as bf16 and
+//                    accumulated in f32. Halves the colour bytes.
+//   blend_bf16       weights and colours enter the colour multiply-add as
+//                    bf16, as the TPU's MXU operands do (its colour table is
+//                    bf16 too). Their product is exact in f32 and the sum is
+//                    f32. Transmittance stays f32 here: tighter than the TPU's
+//                    bf16 LN-unit scan, so its contract (image max error <=
+//                    5e-2 and mean <= 5e-3 of the image's scale, alpha atol
+//                    0.03) holds a fortiori.
+//   exit_stats       per-tile early-exit counters (a nullable pointer, not a
+//                    template parameter, so the build stays 16 instances):
+//                    each pixel reports the chunk (of `chunk` instances,
+//                    counted from the range's chunk-aligned base) that holds
+//                    the splat where it stopped, or "never", and log2 of its
+//                    naive T at that splat (of its final T when it never
+//                    stopped); a warp max and one atomicMax per warp and tile
+//                    reduce them across the tile's bands (the log as an
+//                    order-preserving int, since the raw bits of negative
+//                    floats order backwards). The wrapper turns the two ints
+//                    per tile into the TPU kernel's (T, 8, 128) block.
+//   block_exit       no switch here: this kernel already retires per pixel and
+//                    per block (the __syncthreads_count exit below), so the
+//                    flag is accepted and the output is bit-identical.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
 
 #include "blend_common.cuh"
 
@@ -47,15 +77,26 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-template <int C>
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// log2 T as an int whose signed order is the float order (negative floats'
+// raw bits order backwards); kernels.py undoes it
+__device__ __forceinline__ int ordered_int(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+template <int C, typename Col>
 __global__ void __launch_bounds__(kMaxThreads)
 blend_forward_kernel(const float* __restrict__ geom,
-                     const float* __restrict__ colors,
+                     const Col* __restrict__ colors,
                      const int* __restrict__ inst_gid,
                      const int* __restrict__ tile_starts,
                      const int* __restrict__ tile_counts,
                      const float* __restrict__ bg, float* __restrict__ out,
-                     int tiles_x, int tile_h, int tile_w) {
+                     int* __restrict__ stats, int tiles_x, int tile_h,
+                     int tile_w, int bf16_weights, int chunk) {
   extern __shared__ float smem[];
   const int batch = blockDim.x;
   float* s_mx = smem;
@@ -64,7 +105,7 @@ blend_forward_kernel(const float* __restrict__ geom,
   float* s_cb = s_ca + batch;
   float* s_cc = s_cb + batch;
   float* s_op = s_cc + batch;
-  float* s_col = s_op + batch;  // (batch, C)
+  Col* s_col = reinterpret_cast<Col*>(s_op + batch);  // (batch, C)
 
   const int tile = blockIdx.x;
   const int npix = tile_h * tile_w;
@@ -80,6 +121,8 @@ blend_forward_kernel(const float* __restrict__ geom,
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
   float T = 1.0f;
   bool alive = in_tile;
+  int stop = -1;        // range index of the splat that ended the pixel
+  float t_stop = 1.0f;  // the naive T just after it
 
   for (int b0 = 0; b0 < count; b0 += batch) {
     if (__syncthreads_count(alive) == 0) break;
@@ -93,7 +136,7 @@ blend_forward_kernel(const float* __restrict__ geom,
       s_cb[threadIdx.x] = gr[3];
       s_cc[threadIdx.x] = gr[4];
       s_op[threadIdx.x] = gr[5];
-      const float* cr = colors + static_cast<size_t>(g) * C;
+      const Col* cr = colors + static_cast<size_t>(g) * C;
 #pragma unroll
       for (int c = 0; c < C; ++c) s_col[threadIdx.x * C + c] = cr[c];
     }
@@ -108,11 +151,14 @@ blend_forward_kernel(const float* __restrict__ geom,
         const float next_t = gags::next_transmittance(T, alpha);
         if (next_t < gags::kTEps) {
           alive = false;
+          stop = b0 + k;
+          t_stop = next_t;
           break;
         }
-        const float w = gags::blend_weight(T, alpha);
+        float w = gags::blend_weight(T, alpha);
+        if (bf16_weights) w = __bfloat162float(__float2bfloat16(w));
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += w * s_col[k * C + c];
+        for (int c = 0; c < C; ++c) acc[c] += w * to_float(s_col[k * C + c]);
         T = next_t;
       }
     }
@@ -125,21 +171,36 @@ blend_forward_kernel(const float* __restrict__ geom,
     for (int c = 0; c < C; ++c) o[c] = acc[c] + T * bg[c];
     o[C] = 1.0f - T;
   }
+
+  if (stats != nullptr) {  // uniform over the block: every lane reaches here
+    int chunk1 = 0, lt = INT_MIN;  // out-of-tile threads add nothing
+    if (in_tile) {
+      // the chunk after the stopping splat's, or "never" (INT_MAX)
+      chunk1 = stop >= 0 ? (start % chunk + stop) / chunk + 1 : INT_MAX;
+      lt = ordered_int(log2f(stop >= 0 ? t_stop : T));
+    }
+    chunk1 = __reduce_max_sync(0xffffffffu, chunk1);
+    lt = __reduce_max_sync(0xffffffffu, lt);
+    if ((threadIdx.x & 31) == 0) {
+      atomicMax(stats + 2 * tile, chunk1);
+      atomicMax(stats + 2 * tile + 1, lt);
+    }
+  }
 }
 
-template <int C>
-int launch(const float* geom, const float* colors, const int* inst_gid,
+template <int C, typename Col>
+int launch(const float* geom, const void* colors, const int* inst_gid,
            const int* tile_starts, const int* tile_counts, const float* bg,
-           float* out, int num_tiles, int tiles_x, int tile_h, int tile_w,
-           cudaStream_t stream) {
+           float* out, int* stats, int num_tiles, int tiles_x, int tile_h,
+           int tile_w, int bf16_weights, int chunk, cudaStream_t stream) {
   const int npix = tile_h * tile_w;
   int threads = npix < kMaxThreads ? npix : kMaxThreads;
   threads = (threads + 31) / 32 * 32;
   const dim3 grid(num_tiles, (npix + threads - 1) / threads);
-  const size_t smem = static_cast<size_t>(threads) * (6 + C) * sizeof(float);
-  blend_forward_kernel<C><<<grid, threads, smem, stream>>>(
-      geom, colors, inst_gid, tile_starts, tile_counts, bg, out, tiles_x,
-      tile_h, tile_w);
+  const size_t smem = static_cast<size_t>(threads) * (6 * sizeof(float) + C * sizeof(Col));
+  blend_forward_kernel<C, Col><<<grid, threads, smem, stream>>>(
+      geom, static_cast<const Col*>(colors), inst_gid, tile_starts, tile_counts, bg,
+      out, stats, tiles_x, tile_h, tile_w, bf16_weights, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,23 +222,23 @@ int gags_blend_forward_channels(int i) {
 
 namespace {
 
+template <typename Col>
 int dispatch(const void* geom, const void* colors, const void* inst_gid,
              const void* tile_starts, const void* tile_counts, const void* bg,
-             void* out, int num_tiles, int tiles_x, int tile_h, int tile_w,
-             int channels, void* stream) {
-  if (num_tiles <= 0) return 0;
+             void* out, void* stats, int num_tiles, int tiles_x, int tile_h,
+             int tile_w, int channels, int bf16_weights, int chunk, void* stream) {
   auto g = static_cast<const float*>(geom);
-  auto cl = static_cast<const float*>(colors);
   auto id = static_cast<const int*>(inst_gid);
   auto ts = static_cast<const int*>(tile_starts);
   auto tc = static_cast<const int*>(tile_counts);
   auto b = static_cast<const float*>(bg);
   auto o = static_cast<float*>(out);
+  auto st = static_cast<int*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
-#define GAGS_CASE(CH)                                                       \
-  case CH:                                                                  \
-    return launch<CH>(g, cl, id, ts, tc, b, o, num_tiles, tiles_x, tile_h, \
-                      tile_w, s);
+#define GAGS_CASE(CH)                                                          \
+  case CH:                                                                     \
+    return launch<CH, Col>(g, colors, id, ts, tc, b, o, st, num_tiles, tiles_x, \
+                           tile_h, tile_w, bf16_weights, chunk, s);
   switch (channels) {
     GAGS_CASE(1)
     GAGS_CASE(2)
@@ -197,28 +258,45 @@ int dispatch(const void* geom, const void* colors, const void* inst_gid,
 
 extern "C" {
 
-// K5. geom (R, 8) f32, colors (R, C) f32, inst_gid (M,) i32, tile_starts
-// and tile_counts (num_tiles,) i32, bg (C,) f32, out (num_tiles, P, C+1)
-// f32. Launches on `stream` and returns cudaGetLastError() of the launch.
+// K5. geom (R, 8) f32, colors (R, C) f32 or, with bf16_colors, bf16,
+// inst_gid (M,) i32, tile_starts and tile_counts (num_tiles,) i32, bg (C,)
+// f32, out (num_tiles, P, C+1) f32; stats null or (num_tiles, 2) i32
+// initialised to (0, INT_MIN), which receives per tile the largest
+// stopping chunk + 1 (INT_MAX: some pixel never stopped) and the largest
+// log2 T as an ordered int; chunk: the instances per chunk those count.
+// bf16_weights rounds every blend weight to bf16 before the colour
+// multiply-add. Launches on `stream` and returns cudaGetLastError() of the
+// launch.
 int gags_blend_forward(const void* geom, const void* colors,
                        const void* inst_gid, const void* tile_starts,
                        const void* tile_counts, const void* bg, void* out,
-                       int num_tiles, int tiles_x, int tile_h, int tile_w,
-                       int channels, void* stream) {
-  return dispatch(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
-                  num_tiles, tiles_x, tile_h, tile_w, channels, stream);
+                       void* stats, int num_tiles, int tiles_x, int tile_h,
+                       int tile_w, int channels, int bf16_colors,
+                       int bf16_weights, int chunk, void* stream) {
+  if (num_tiles <= 0) return 0;
+  if (stats != nullptr && chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16_colors) {
+    return dispatch<__nv_bfloat16>(geom, colors, inst_gid, tile_starts, tile_counts, bg,
+                                   out, stats, num_tiles, tiles_x, tile_h, tile_w,
+                                   channels, bf16_weights, chunk, stream);
+  }
+  return dispatch<float>(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
+                         stats, num_tiles, tiles_x, tile_h, tile_w, channels,
+                         bf16_weights, chunk, stream);
 }
 
-// K1, the same arguments over an aligned binning (chunk-aligned starts,
-// tile_counts = the real instances of each range).
+// K1, over an aligned binning (chunk-aligned starts, tile_counts = the real
+// instances of each range): f32 colours, no options.
 int gags_blend_forward_aligned(const void* geom, const void* colors,
                                const void* inst_gid, const void* tile_starts,
                                const void* tile_counts, const void* bg,
                                void* out, int num_tiles, int tiles_x,
                                int tile_h, int tile_w, int channels,
                                void* stream) {
-  return dispatch(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
-                  num_tiles, tiles_x, tile_h, tile_w, channels, stream);
+  if (num_tiles <= 0) return 0;
+  return dispatch<float>(geom, colors, inst_gid, tile_starts, tile_counts, bg, out,
+                         nullptr, num_tiles, tiles_x, tile_h, tile_w, channels, 0, 0,
+                         stream);
 }
 
 }  // extern "C"

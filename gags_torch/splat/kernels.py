@@ -5,7 +5,11 @@
   K3 sorted_segment_sum     per-instance rows summed per depth rank
   K4 dense_segment_sum      per-segment sums of pixel rows (region losses)
   K5 blend_forward          inference composite over unaligned ranges
+                            (options: bf16 colour rows, bf16 weights,
+                            per-tile early-exit counters)
   K6 expand_gid             owning rank of every instance slot
+  K7 expand_keys            K6 fused with the per-slot rect, the exact
+                            ellipse-tile cull and the sort key
   K8 blend_backward_full    full VJP of the blend: colour and screen-space
                             geometry gradients, per instance
 
@@ -28,17 +32,21 @@ from gags_torch import _kernels
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 EXPAND_GID_SRC = CSRC / "expand_gid.cu"
+EXPAND_KEYS_SRC = CSRC / "expand_keys.cu"
 BLEND_FORWARD_SRC = CSRC / "blend_forward.cu"
 BLEND_BACKWARD_SRC = CSRC / "blend_backward.cu"
 BLEND_BACKWARD_FULL_SRC = CSRC / "blend_backward_full.cu"
 SORTED_SEGMENT_SUM_SRC = CSRC / "sorted_segment_sum.cu"
 DENSE_SEGMENT_SUM_SRC = CSRC / "dense_segment_sum.cu"
-SOURCES = (EXPAND_GID_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC, BLEND_BACKWARD_FULL_SRC,
-           SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC)
+SOURCES = (EXPAND_GID_SRC, EXPAND_KEYS_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC,
+           BLEND_BACKWARD_FULL_SRC, SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC)
 
 ALPHA_FLOOR = 1.0 / 255.0
 ALPHA_CLAMP = 0.999
 T_EPS = 1e-4
+EXPAND_K = 1024  # slots per K7 block and per valid count
+INT64_MAX = torch.iinfo(torch.int64).max
+SEG_CHUNKS = 8  # chunks per TPU streaming segment (exit-stats lanes 0 and 1)
 
 launch_counts = {
     "blend_forward_aligned": 0,
@@ -48,6 +56,7 @@ launch_counts = {
     "dense_segment_sum": 0,
     "blend_forward": 0,
     "expand_gid": 0,
+    "expand_keys": 0,
 }
 
 
@@ -116,6 +125,123 @@ def expand_gid(offsets: torch.Tensor, num_slots: int) -> torch.Tensor:
     _kernels.check(lib, err, "expand_gid")
     launch_counts["expand_gid"] += 1
     return gid
+
+
+# --------------------------------------------------------------------------
+# K7: expand_keys
+# --------------------------------------------------------------------------
+
+
+def ellipse_tile_keep(tile_x, tile_y, tile_w: int, tile_h: int, cull, half_px: float = 0.5):
+    """Exact alpha-floor tile test (the JAX package's tiles.ellipse_tile_keep,
+    operation for operation): keep a (Gaussian, tile) instance iff some
+    pixel centre of the tile has sigma <= L = ln(255 o_eff), i.e. blend
+    alpha >= 1/255. The pixel centres of tile (tx, ty) span [tx tw + 0.5,
+    tx tw + tw - 0.5] x [...]; the continuous minimum over that rectangle
+    lower-bounds the discrete one, so dropping on `min > L` never drops a
+    contributing pixel. The minimum of the quadratic form is 0 with the
+    mean inside, else it lies on an edge, where the 1-D minimiser has a
+    closed form. cull: (M, 6) rows [mx, my, conic_a, conic_b, conic_c, L].
+    The clip and the minima propagate NaN (torch.maximum / torch.minimum),
+    as jnp.clip and jnp.minimum do; K7 mirrors that."""
+    mx, my = cull[:, 0], cull[:, 1]
+    a, b, c, lvl = cull[:, 2], cull[:, 3], cull[:, 4], cull[:, 5]
+    u0 = tile_x.to(torch.float32) * tile_w + half_px - mx
+    u1 = u0 + (tile_w - 2 * half_px)
+    v0 = tile_y.to(torch.float32) * tile_h + half_px - my
+    v1 = v0 + (tile_h - 2 * half_px)
+    inside = (u0 <= 0) & (0 <= u1) & (v0 <= 0) & (0 <= v1)
+
+    def clip(x, lo, hi):  # jnp.clip
+        return torch.minimum(hi, torch.maximum(lo, x))
+
+    def edge_u(ub):  # u fixed at a vertical edge, minimise over v
+        vs = clip(-b * ub / c, v0, v1)
+        return (0.5 * a * ub + b * vs) * ub + 0.5 * c * vs * vs
+
+    def edge_v(vb):  # v fixed at a horizontal edge, minimise over u
+        us = clip(-b * vb / a, u0, u1)
+        return (0.5 * c * vb + b * us) * vb + 0.5 * a * us * us
+
+    smin = torch.minimum(torch.minimum(edge_u(u0), edge_u(u1)),
+                         torch.minimum(edge_v(v0), edge_v(v1)))
+    return inside | (smin <= lvl)
+
+
+def slot_keys(gid, offsets, packed_p, num_valid, *, shift, tiles_x, tile_w, tile_h,
+              cull_p=None):
+    """Sort key of every instance slot from its owning rank `gid` (K6's
+    output): the slot's tile from the rank's packed rect (x0 | y0 << 10 |
+    pw << 20) and its offset, key (tile << shift) | rank where the slot is
+    below `num_valid` (a 0-d tensor) and, with `cull_p` ((n, 6) cull rows
+    in rank order), the tile passes `ellipse_tile_keep`; INT64_MAX
+    elsewhere. Returns (keys (M,) int64, valid (M,) bool)."""
+    g = gid.long()
+    idx = torch.arange(g.shape[0], dtype=torch.int64, device=g.device)
+    pk = packed_p[g].long()
+    slot = idx - offsets[g].long()
+    pw = (pk >> 20) & 1023
+    dy = torch.div(slot, pw, rounding_mode="floor")
+    tx = (pk & 1023) + slot - dy * pw
+    ty = ((pk >> 10) & 1023) + dy
+    valid = idx < num_valid
+    if cull_p is not None:
+        valid = valid & ellipse_tile_keep(tx, ty, tile_w, tile_h, cull_p[g])
+    keys = torch.where(valid, ((ty * tiles_x + tx) << shift) | g,
+                       torch.full_like(g, INT64_MAX))
+    return keys, valid
+
+
+def expand_keys_plain(offsets, packed_p, num_valid, num_slots, *, shift, tiles_x, tile_w,
+                      tile_h, cull_p=None):
+    """The keys and per-chunk valid counts of `expand_keys`: K6's plain
+    version, then `slot_keys`."""
+    gid = expand_gid_plain(offsets, num_slots)
+    keys, valid = slot_keys(gid, offsets, packed_p, num_valid, shift=shift, tiles_x=tiles_x,
+                            tile_w=tile_w, tile_h=tile_h, cull_p=cull_p)
+    counts = valid.reshape(-1, EXPAND_K).sum(1, dtype=torch.int32)
+    return keys, counts
+
+
+def expand_keys(offsets, packed_p, num_valid, num_slots, *, shift, tiles_x, tile_w, tile_h,
+                cull_p=None):
+    """K7: the sort key of each of `num_slots` (a multiple of 1024) instance
+    slots in one pass: the owning rank (K6's search), the slot's tile, the
+    optional exact ellipse-tile cull, the key (tile << shift) | rank or
+    INT64_MAX. offsets and packed_p (n,) int32 and cull_p (n, 6) f32 in
+    depth-rank order, num_valid a 0-d int32 tensor (read on the device:
+    no host sync). Returns (keys (num_slots,) int64, valid counts
+    (num_slots / 1024,) int32)."""
+    if num_slots % EXPAND_K:
+        raise ValueError(f"expand_keys: {num_slots} slots, not a multiple of {EXPAND_K}")
+    if not _dispatch(offsets):
+        return expand_keys_plain(offsets, packed_p, num_valid, num_slots, shift=shift,
+                                 tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h, cull_p=cull_p)
+    dev = offsets.device
+    _check_tensor("offsets", offsets, torch.int32, dev, ndim=1)
+    _check_tensor("packed_p", packed_p, torch.int32, dev, ndim=1)
+    n = offsets.shape[0]
+    if n == 0 or packed_p.shape[0] != n:
+        raise ValueError(f"expand_keys: offsets ({n},) and packed_p {tuple(packed_p.shape)}")
+    num_valid = num_valid.reshape(1).to(torch.int32)
+    _check_tensor("num_valid", num_valid, torch.int32, dev, ndim=1)
+    if cull_p is not None:
+        _check_tensor("cull_p", cull_p, torch.float32, dev, ndim=2)
+        if cull_p.shape != (n, 6):
+            raise ValueError(f"cull_p: expected ({n}, 6), got {tuple(cull_p.shape)}")
+    keys = torch.empty((num_slots,), dtype=torch.int64, device=dev)
+    counts = torch.empty((num_slots // EXPAND_K,), dtype=torch.int32, device=dev)
+    lib = _kernels.load(EXPAND_KEYS_SRC)
+    fn = lib.gags_expand_keys
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(_ptr(offsets), _ptr(packed_p), None if cull_p is None else _ptr(cull_p),
+             _ptr(num_valid), n, _ptr(keys), _ptr(counts), num_slots, shift, tiles_x,
+             tile_w, tile_h, _stream(offsets))
+    _kernels.check(lib, err, "expand_keys")
+    launch_counts["expand_keys"] += 1
+    return keys, counts
 
 
 # --------------------------------------------------------------------------
@@ -193,25 +319,72 @@ def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
         yield _WalkStep(inr, pos, rows, dx, dy, vis, alpha, t_before, use, w, T)
 
 
+def _exit_stats_block(tile_starts, tile_counts, stop_chunk1, log2t, chunk):
+    """The (T, 8, 128) f32 early-exit counters of the TPU kernel
+    (`rasterize_exit_stats`'s public contract), row 0 of each tile:
+    lane 0 segments done, 1 total segments, 2 chunks done, 3 total chunks,
+    4 the largest log2 of a pixel's naive T where it stopped (its final T
+    where it never did). Chunks hold `chunk` instances counted from the
+    range's chunk-aligned base (start - start % chunk); a segment is
+    SEG_CHUNKS chunks, the TPU kernel's DMA unit, kept only for this
+    contract. `stop_chunk1` (T,): the chunk after the one holding the
+    splat where the tile's last pixel stopped, or anything >= the total
+    where some pixel never stopped (the TPU loop then runs to the end)."""
+    lead = tile_starts.long() % chunk
+    cnt = tile_counts.long()
+    total = torch.where(cnt > 0, (lead + cnt + chunk - 1) // chunk, torch.zeros_like(cnt))
+    done = torch.minimum(stop_chunk1.long(), total)
+    segs = SEG_CHUNKS
+    stats = torch.zeros((cnt.shape[0], 8, 128), dtype=torch.float32, device=cnt.device)
+    lanes = [(done + segs - 1) // segs, (total + segs - 1) // segs, done, total]
+    stats[:, 0, :5] = torch.stack([x.to(torch.float32) for x in lanes] + [log2t], 1)
+    return stats
+
+
 def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
-                        tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
-    """The composite of `blend_forward` (and `blend_forward_aligned`).
-    With return_pairs, also returns the pairs walked and blended, as ints
-    (see `_walk_ranges`)."""
+                        tiles_x, tiles_y, tile_h, tile_w, return_pairs=False, *,
+                        fast_color_rows=False, blend_bf16=False, exit_stats=False,
+                        block_exit=False, chunk=128):
+    """The composite of `blend_forward` (and `blend_forward_aligned`), with
+    K5's options: `fast_color_rows` rounds the colour table to bf16;
+    `blend_bf16` rounds the colours and every blend weight to bf16 before
+    the multiply-add (f32 products and sums); `exit_stats` also returns
+    the (T, 8, 128) early-exit counters; `block_exit` changes nothing.
+    Returns out, then stats with exit_stats, then the pairs walked and
+    blended (ints, see `_walk_ranges`) with return_pairs."""
+    del block_exit  # bit-identical by construction
+    if fast_color_rows or blend_bf16:
+        colors = colors.to(torch.bfloat16).to(torch.float32)
     c = colors.shape[1]
     npix = tile_h * tile_w
-    acc = torch.zeros((tiles_x * tiles_y, npix, c), dtype=torch.float32, device=geom.device)
-    T = torch.ones(acc.shape[:2], dtype=torch.float32, device=geom.device)
+    dev = geom.device
+    acc = torch.zeros((tiles_x * tiles_y, npix, c), dtype=torch.float32, device=dev)
+    T = torch.ones(acc.shape[:2], dtype=torch.float32, device=dev)
+    stop = torch.full(T.shape, -1, dtype=torch.int64, device=dev)  # range index
+    t_stop = torch.ones_like(T)  # the naive T just after the stopping splat
     pairs = [0, 0]
-    for s in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
-                          tiles_y, tile_h, tile_w, pairs if return_pairs else None):
-        acc += s.w[..., None] * colors[inst_gid[s.pos].long()][:, None, :]
+    for k, s in enumerate(_walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
+                                       tiles_y, tile_h, tile_w,
+                                       pairs if return_pairs else None)):
+        w = s.w.to(torch.bfloat16).to(torch.float32) if blend_bf16 else s.w
+        acc += w[..., None] * colors[inst_gid[s.pos].long()][:, None, :]
         T = s.T
+        if exit_stats:
+            next_t = s.t_before * (1.0 - s.alpha)
+            ends = (stop < 0) & (s.alpha > 0.0) & (next_t < T_EPS)
+            stop = torch.where(ends, k, stop)
+            t_stop = torch.where(ends, next_t, t_stop)
     img = acc + T[..., None] * bg.reshape(1, 1, c)
-    out = torch.cat([img, (1.0 - T)[..., None]], dim=-1)
+    ret = [torch.cat([img, (1.0 - T)[..., None]], dim=-1)]
+    if exit_stats:
+        lead = tile_starts.long()[:, None] % chunk
+        chunk1 = torch.where(stop >= 0, (lead + stop) // chunk + 1, torch.iinfo(torch.int64).max)
+        log2t = torch.log2(torch.where(stop >= 0, t_stop, T))
+        ret.append(_exit_stats_block(tile_starts, tile_counts, chunk1.amax(1),
+                                     log2t.amax(1), chunk))
     if return_pairs:
-        return out, int(pairs[0]), int(pairs[1])
-    return out
+        ret += [int(pairs[0]), int(pairs[1])]
+    return ret[0] if len(ret) == 1 else tuple(ret)
 
 
 def _padded_channels(lib, query: str, c: int, what: str) -> int:
@@ -237,7 +410,8 @@ def _check_ranges(tile_starts, tile_counts, num_tiles, dev):
 
 
 def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
-                          tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w):
+                          tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w, *,
+                          bf16_colors=False, bf16_weights=False, exit_stats=False, chunk=128):
     dev = geom.device
     num_tiles = tiles_x * tiles_y
     _check_tensor("geom", geom, torch.float32, dev, ndim=2)
@@ -253,39 +427,69 @@ def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
     lib = _kernels.load(BLEND_FORWARD_SRC)
     cp = _padded_channels(lib, "gags_blend_forward_channels", c, key)
     if cp != c:  # zero channels up to a compiled count, sliced off below
-        colors = torch.nn.functional.pad(colors, (0, cp - c)).contiguous()
+        colors = torch.nn.functional.pad(colors, (0, cp - c))
         bg = torch.nn.functional.pad(bg, (0, cp - c)).contiguous()
+    if bf16_colors:  # round to nearest even, as astype(jnp.bfloat16)
+        colors = colors.to(torch.bfloat16)
+    colors = colors.contiguous()
     npix = tile_h * tile_w
     out = torch.empty((num_tiles, npix, cp + 1), dtype=torch.float32, device=dev)
+    common = (_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts),
+              _ptr(tile_counts), _ptr(bg), _ptr(out))
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts),
-             _ptr(tile_counts), _ptr(bg), _ptr(out), num_tiles, tiles_x,
-             tile_h, tile_w, cp, _stream(geom))
+    stats = None
+    if entry == "gags_blend_forward":
+        if exit_stats:  # (largest stopping chunk + 1, largest log2 T as an ordered int)
+            stats = torch.empty((num_tiles, 2), dtype=torch.int32, device=dev)
+            stats[:, 0] = 0
+            stats[:, 1] = torch.iinfo(torch.int32).min
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        err = fn(*common, None if stats is None else _ptr(stats), num_tiles, tiles_x,
+                 tile_h, tile_w, cp, int(bf16_colors), int(bf16_weights), chunk,
+                 _stream(geom))
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        err = fn(*common, num_tiles, tiles_x, tile_h, tile_w, cp, _stream(geom))
     _kernels.check(lib, err, key)
     launch_counts[key] += 1
     if cp != c:
         out = torch.cat([out[..., :c], out[..., cp:]], dim=-1)
-    return out
+    if stats is None:
+        return out
+    bits = stats[:, 1]
+    log2t = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).view(torch.float32)
+    return out, _exit_stats_block(tile_starts, tile_counts, stats[:, 0], log2t, chunk)
 
 
 def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
-                  tiles_x, tiles_y, tile_h, tile_w):
+                  tiles_x, tiles_y, tile_h, tile_w, *, fast_color_rows=False,
+                  blend_bf16=False, exit_stats=False, block_exit=False, chunk=128):
     """K5: front-to-back composite over unaligned per-tile ranges.
 
     geom (R, 8) f32 and colors (R, C) f32 are rank-permuted tables with a
     zero sentinel row, inst_gid (M,) i32 holds ranks, tile_starts and
     tile_counts (T,) i32, bg (C,) f32. Returns (T, P, C+1) f32: the C
     channels with bg blended against the final T, then alpha = 1 - T.
+
+    Options (the JAX config's): `fast_color_rows` blends a bf16 copy of the
+    colour table; `blend_bf16` also rounds every blend weight to bf16
+    before the colour multiply-add; `exit_stats` returns (out, stats),
+    stats the (T, 8, 128) f32 early-exit counters (see
+    `_exit_stats_block`; chunks of `chunk` instances); `block_exit` is
+    accepted and changes nothing (the kernel retires per pixel and block).
     """
     if not _dispatch(geom):
         return blend_forward_plain(geom, colors, inst_gid, tile_starts,
                                    tile_counts, bg, tiles_x, tiles_y, tile_h,
-                                   tile_w)
+                                   tile_w, fast_color_rows=fast_color_rows,
+                                   blend_bf16=blend_bf16, exit_stats=exit_stats,
+                                   chunk=chunk)
     return _launch_blend_forward(
         "gags_blend_forward", "blend_forward", geom, colors, inst_gid,
-        tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w)
+        tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w,
+        bf16_colors=fast_color_rows or blend_bf16, bf16_weights=blend_bf16,
+        exit_stats=exit_stats, chunk=chunk)
 
 
 # --------------------------------------------------------------------------

@@ -16,9 +16,19 @@ opacities. The binning always comes from a projection without gradient.
 The unaligned (inference) binning blends with K5 and refuses a backward,
 as in JAX. `prepare_binning` + `rasterize_binned` split the colour-only
 path for GAD training, where the geometry is frozen and each camera's
-binning is computed once. The TPU-only switches of the JAX config
-(mxu_sigma, p_block, soa_geom, image_chw, fast_color_rows, blend_bf16,
-block_exit, fused_keys, tile_cull) are absent.
+binning is computed once.
+
+The inference options of the JAX config that carry semantics are here,
+for unaligned binnings (an aligned one ignores them, as in JAX):
+`tile_cull` (the exact ellipse-tile cull: fewer instances, so another
+`num_valid`, the same image), `fused_keys` (K7 builds the binning's
+keys: the same binning), `fast_color_rows` and `blend_bf16` (bf16
+colour rows, bf16 blend weights: other numbers, within the error
+contracts of tests/test_pallas_rasterizer.py) and `block_exit` (accepted:
+K5 already retires per pixel and per block, the output is
+bit-identical). `rasterize_exit_stats` returns K5's per-tile early-exit
+counters. The switches that only choose a TPU layout (mxu_sigma,
+p_block, soa_geom, image_chw) are absent.
 """
 
 from __future__ import annotations
@@ -52,6 +62,18 @@ class RasterizeConfig:
     # share one kernel body (csrc/blend_forward.cu), so aligned binnings
     # always launch K1
     fast_fwd_aligned: bool = False
+    # inference (aligned=False) options, defaults as in JAX:
+    # K7 builds the keys of the binning (the same binning)
+    fused_keys: bool = False
+    # drop instances whose tile has no pixel above the alpha floor
+    # (tiles.ellipse_tile_keep): image-exact, fewer instances
+    tile_cull: bool = False
+    # bf16 colour rows in K5 (~1e-3 relative colour error)
+    fast_color_rows: bool = False
+    # bf16 blend weights and colours in K5's multiply-add (~1e-2 relative)
+    blend_bf16: bool = False
+    # accepted, bit-identical: K5 retires per pixel and per block already
+    block_exit: bool = False
 
     def instance_budget(self, n: int) -> int:
         if self.budget is not None:
@@ -92,16 +114,34 @@ def order_ext(order: torch.Tensor) -> torch.Tensor:
     return torch.cat([order, torch.full((1,), n, dtype=order.dtype, device=order.device)])
 
 
+def _wants_cull(cfg: RasterizeConfig) -> bool:
+    return cfg.tile_cull and not cfg.aligned
+
+
+def _cull_rows(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tensor:
+    """(N, 6) [mx, my, conic_a, conic_b, conic_c, L] of the exact
+    ellipse-tile cull (tiles.ellipse_tile_keep); L = ln(255 o_eff), the
+    alpha floor's level set in the kernels' sigma units."""
+    lvl = torch.log(255.0 * torch.clamp_min(effective_opacity(opacities, proj.compensations),
+                                            1e-12))
+    return torch.cat([proj.means2d, proj.conics, lvl[:, None]], dim=1).to(torch.float32)
+
+
 def _project_and_bin(means, quats, scales, opacities, viewmat, K, width, height, cfg):
-    """Project + bin (the binning arguments are set here only)."""
+    """Project + bin (the binning arguments are set here only). The cull
+    needs the opacities: without them (`prepare_binning` called without)
+    it is off, as in JAX."""
     proj = project_gaussians(
         means, quats, scales, viewmat, K, width, height,
         opacities=opacities if cfg.opacity_extents else None,
     )
+    cull = (_cull_rows(proj, opacities)
+            if _wants_cull(cfg) and opacities is not None else None)
     binned = tiles.bin_gaussians(
         proj.means2d, proj.radii_x, proj.depths, width, height,
         cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(means.shape[0]),
         chunk=cfg.chunk, radii_y=proj.radii_y, aligned=cfg.aligned,
+        cull_rows=cull, fused_keys=cfg.fused_keys,
     )
     return proj, binned
 
@@ -148,9 +188,16 @@ def _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, bg, tiles_x
     the (T, P, C+1) tile image + alpha."""
     c = colors.shape[1]
     table = torch.cat([colors, colors.new_zeros((1, c))]).contiguous()
-    blend = kernels.blend_forward_aligned if cfg.aligned else kernels.blend_forward
-    return table, blend(geom, table, inst_gid, tile_starts, tile_counts, bg,
-                        tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
+    args = (geom, table, inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y,
+            cfg.tile_h, cfg.tile_w)
+    if cfg.aligned:
+        return table, kernels.blend_forward_aligned(*args)
+    return table, kernels.blend_forward(*args, **_k5_options(cfg))
+
+
+def _k5_options(cfg: RasterizeConfig) -> dict:
+    return dict(fast_color_rows=cfg.fast_color_rows, blend_bf16=cfg.blend_bf16,
+                block_exit=cfg.block_exit, chunk=cfg.chunk)
 
 
 def _require_aligned(cfg: RasterizeConfig) -> None:
@@ -366,3 +413,40 @@ def rasterize(
         image=img, alpha=alpha, radii=proj.radii, means2d=proj.means2d,
         overflow=binned.overflow,
     )
+
+
+@torch.no_grad()
+def rasterize_exit_stats(means, quats, scales, opacities, colors, viewmat, K, width: int,
+                         height: int, background: Optional[torch.Tensor] = None,
+                         config: RasterizeConfig = RasterizeConfig(aligned=False),
+                         device="cuda"):
+    """The unaligned forward WITH K5's per-tile early-exit counters.
+
+    Returns (stats (T, 8, 128) f32, num_valid () int32). Row 0 of each
+    tile: lanes 0-3 segments done / total and chunks done / total (chunks
+    of `config.chunk` instances, segments of 8 chunks), lane 4 the largest
+    log2 of a pixel's naive T where it stopped (its final T where it never
+    did). The tables are permuted into depth-rank order here, as
+    `rasterize` does (the JAX package's note on the probes that skipped
+    that step and measured a garbage workload). Runs on `device` (default
+    "cuda")."""
+    if config.aligned:
+        raise ValueError("rasterize_exit_stats: the unaligned binning only (aligned=False)")
+    dev = resolve_device(device)
+
+    def f32(t):
+        return t.to(device=dev, dtype=torch.float32).contiguous()
+
+    geo = [f32(t) for t in (means, quats, scales, opacities)]
+    proj, binned, geom, tiles_x, tiles_y = _prepare(*geo, f32(viewmat), f32(K), width, height,
+                                                    config)
+    perm = order_ext(binned.order.long())
+    colors = f32(colors)
+    c = colors.shape[1]
+    table = torch.cat([colors, colors.new_zeros((1, c))])[perm].contiguous()
+    bg = torch.zeros((c,), dtype=torch.float32, device=dev) if background is None else f32(background)
+    _, stats = kernels.blend_forward(geom[perm].contiguous(), table, binned.inst_gid,
+                                     binned.tile_starts, binned.tile_counts, bg, tiles_x,
+                                     tiles_y, config.tile_h, config.tile_w, exit_stats=True,
+                                     **_k5_options(config))
+    return stats, binned.num_valid

@@ -6,9 +6,13 @@ Projected Gaussians become a tile-major, front-to-back instance list:
      (Gaussians that cover no tile sort last with depth key +inf);
   2. the ragged→dense expansion: kernel K6 (`kernels.expand_gid`) gives
      each instance slot its owning depth rank, from which the slot's tile
-     follows;
-  3. one sort of int64 keys (tile << shift) | rank, shift = bits(N), so the
-     rank comes back as a mask of the sorted key;
+     and its key (tile << shift) | rank follow (`kernels.slot_keys`),
+     shift = bits(N), so the rank comes back as a mask of the sorted key;
+     with `fused_keys` (unaligned only), kernel K7 (`kernels.expand_keys`)
+     does this step in one pass. An optional exact ellipse-tile cull
+     (`ellipse_tile_keep`, unaligned only) drops instances whose tile has
+     no pixel above the alpha floor;
+  3. one sort of the int64 keys;
   4. per-tile ranges by searchsorted on the sorted keys.
 
 `inst_gid` holds depth RANKS: rank r is the Gaussian `order[r]`; callers
@@ -32,9 +36,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from gags_torch.splat import kernels
-
-EXPAND_K = 1024  # slot granularity of the expansion (the JAX package's)
-INT64_MAX = torch.iinfo(torch.int64).max
+from gags_torch.splat.kernels import (  # noqa: F401  (ellipse_tile_keep: the JAX module's name)
+    EXPAND_K, INT64_MAX, ellipse_tile_keep)
 
 
 class ReductionLayout(NamedTuple):
@@ -215,7 +218,8 @@ def _aligned_tile_counts(packed_p, counts_p, g_cut, tiles_x, tiles_y, chunk):
 
 
 def bin_gaussians(means2d, radii, depths, width, height, tile_w, tile_h,
-                  budget, chunk=128, radii_y=None, aligned=False) -> BinnedInstances:
+                  budget, chunk=128, radii_y=None, aligned=False, cull_rows=None,
+                  fused_keys=False) -> BinnedInstances:
     """Tile-major, front-to-back instance list.
 
     means2d (N, 2), radii (N,) int32 (the x half-extent when radii_y is
@@ -228,6 +232,14 @@ def bin_gaussians(means2d, radii, depths, width, height, tile_w, tile_h,
     zero-opacity dummies (rank n) to a whole number of chunks; the list
     holds budget (rounded to chunk) + num_tiles * chunk slots and carries
     the gradient-reduction layout in `red`.
+
+    Unaligned only (an aligned binning ignores both, as in JAX: its dummy
+    counts must match the rects): `cull_rows`, (N, 6) f32 [mx, my,
+    conic_a, conic_b, conic_c, L = ln(255 o_eff)], drops every instance
+    whose tile fails `ellipse_tile_keep`; `num_valid` becomes the count
+    kept, `overflow` stays the budget's. `fused_keys` builds the keys with
+    K7 (`kernels.expand_keys`) instead of K6, an M-row gather and the key
+    chain: the same keys.
     """
     dev = means2d.device
     n = means2d.shape[0]
@@ -251,22 +263,21 @@ def bin_gaussians(means2d, radii, depths, width, height, tile_w, tile_h,
     num_valid = torch.where(g_cut > 0, last, torch.zeros_like(total))
     overflow = total - num_valid
 
-    # ragged→dense expansion: owning rank of every slot (kernel K6); the
-    # aligned layout expands exactly m_real slots, like the JAX package
+    # ragged→dense expansion and keys; the aligned layout expands exactly
+    # m_real slots, like the JAX package
     mk = m_real if aligned else expansion_slots(budget, chunk)
-    gid = kernels.expand_gid(offsets, mk).long()
-    idx = torch.arange(mk, dtype=torch.int64, device=dev)
-    pk = packed_p[gid].long()
-    slot = idx - offsets[gid].long()
-    px0 = pk & 1023
-    py0 = (pk >> 10) & 1023
-    pw = (pk >> 20) & 1023
-    dy = torch.div(slot, pw, rounding_mode="floor")
-    dx = slot - dy * pw
-    tile = (py0 + dy) * tiles_x + (px0 + dx)
-    valid = idx < num_valid
-    keys = torch.where(valid, (tile << shift) | gid,
-                       torch.full_like(tile, INT64_MAX))
+    key_args = dict(shift=shift, tiles_x=tiles_x, tile_w=tile_w, tile_h=tile_h,
+                    cull_p=None if aligned or cull_rows is None
+                    else cull_rows.to(torch.float32)[order].contiguous())
+    if fused_keys and not aligned:
+        keys, counts = kernels.expand_keys(offsets, packed_p, num_valid, mk, **key_args)
+        if key_args["cull_p"] is not None:
+            num_valid = counts.sum(dtype=torch.int32)
+    else:
+        gid = kernels.expand_gid(offsets, mk)  # owning rank of every slot (K6)
+        keys, valid = kernels.slot_keys(gid, offsets, packed_p, num_valid, **key_args)
+        if key_args["cull_p"] is not None:
+            num_valid = valid.sum(dtype=torch.int32)
     if aligned:
         counts_t, padded, tile_starts = _aligned_tile_counts(
             packed_p, inc - offsets, g_cut, tiles_x, tiles_y, chunk)

@@ -1,5 +1,6 @@
-"""Colormaps for visual outputs (numpy; a copy of the serving subset of
-gags_tpu.utils.colormaps): turbo and the PCA feature visualisation."""
+"""Colormaps for visual outputs (numpy; a copy of the rendering subset of
+gags_tpu.utils.colormaps): turbo, float and depth maps, and the PCA
+feature visualisation."""
 
 from __future__ import annotations
 
@@ -15,6 +16,23 @@ def turbo(x: np.ndarray) -> np.ndarray:
     g = 0.09140261 + x * (2.19418839 + x * (4.84296658 + x * (-14.18503333 + x * (4.27729857 + x * 2.82956604))))
     b = 0.10667330 + x * (12.64194608 + x * (-60.58204836 + x * (110.36276771 + x * (-89.90310912 + x * 27.34824973))))
     return np.clip(np.stack([r, g, b], -1), 0.0, 1.0)
+
+
+def apply_float_colormap(img: np.ndarray) -> np.ndarray:
+    """(H, W, 1) in [0,1] → (H, W, 3) turbo (reference apply_float_colormap)."""
+    return turbo(np.nan_to_num(img[..., 0]))
+
+
+def apply_depth_colormap(
+    depth: np.ndarray,
+    near: Optional[float] = None,
+    far: Optional[float] = None,
+) -> np.ndarray:
+    """(H, W) depth → (H, W, 3) turbo over [near, far] (default: its range)."""
+    near = float(np.min(depth)) if near is None else near
+    far = float(np.max(depth)) if far is None else far
+    x = (depth - near) / max(far - near, 1e-10)
+    return turbo(np.clip(x, 0, 1))
 
 
 def apply_pca_colormap(

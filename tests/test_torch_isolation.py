@@ -50,6 +50,7 @@ def test_port_imports_with_jax_blocked():
         "import gags_torch.cli.train_gad, gags_torch.gad.checkpoints\n"
         "import gags_torch.cli.train_rgb, gags_torch.rgb.train, gags_torch.knn\n"
         "import gags_torch.scene.densify, gags_torch.utils.metrics\n"
+        "import gags_torch.cli.render, gags_torch.splat.autotune, gags_torch.utils.timing\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -99,6 +100,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         load_server("/nonexistent", 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["-m", "/nonexistent"])
+    from gags_torch.cli import render as render_cli
+    from gags_torch.splat.rasterizer import rasterize_exit_stats
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_cli.run("/nonexistent", "/nonexistent")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rasterize_exit_stats(t["means"], t["quats"], t["scales"], t["opacities"],
+                             t["features"], cam.viewmat, cam.K, 32, 16)
     # the CPU is taken only when asked for
     out = rasterize(t["means"], t["quats"], t["scales"], t["opacities"], t["features"],
                     cam.viewmat, cam.K, 32, 16, device="cpu")

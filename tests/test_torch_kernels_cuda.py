@@ -34,8 +34,11 @@ def test_expand_gid_matches_plain(dev):
     assert torch.equal(got, want)
 
 
-def _inputs(dev, n, cdim, width=320, height=180, tile=(16, 16)):
-    raw = make_scene(n, seed=1, extent=3.0, feature_dim=cdim)
+def _inputs(dev, n, cdim, width=320, height=180, tile=(16, 16), saturated=False):
+    raw = make_scene(n, seed=1, extent=3.0 if not saturated else 0.6, feature_dim=cdim)
+    if saturated:  # near-opaque, concentrated: whole tiles stop early
+        raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, n).astype(np.float32)
+        raw["scales"] *= 3.0
     cam = make_camera(width, height, device=dev)
     t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
     cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1], aligned=False)
@@ -252,3 +255,96 @@ def test_rasterize_gradient_on_card_matches_cpu(dev):
         (res.image * w).sum().backward()
         grads[d.type] = cols.grad.cpu()
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-4, atol=1e-5)
+
+
+def _key_inputs(dev, n, cull, budget_factor=4.0, width=320, height=180, tile=16):
+    """Per-rank binning inputs of K7 from a real projection on the card."""
+    from gags_torch.splat import tiles
+    from gags_torch.splat.projection import project_gaussians
+    from gags_torch.splat.rasterizer import _cull_rows
+
+    raw = make_scene(n, seed=5, extent=3.0)
+    cam = make_camera(width, height, device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    proj = project_gaussians(t["means"], t["quats"], t["scales"], cam.viewmat, cam.K, width,
+                             height, opacities=t["opacities"])
+    tx, ty = -(-width // tile), -(-height // tile)
+    order, packed_p, offsets, inc = tiles.depth_ranks(proj.means2d, proj.radii_x, proj.depths,
+                                                      tile, tile, tx, ty, radii_y=proj.radii_y)
+    budget = int(budget_factor * n)
+    m_real = -(-budget // 128) * 128
+    nv = inc[min(int(torch.searchsorted(inc, torch.tensor([m_real], dtype=torch.int32,
+                                                              device=dev), right=True)) - 1,
+                 n - 1)]
+    kw = dict(shift=max(1, n.bit_length()), tiles_x=tx, tile_w=tile, tile_h=tile,
+              cull_p=_cull_rows(proj, t["opacities"])[order].contiguous() if cull else None)
+    return proj, t, (offsets, packed_p, nv.to(torch.int32), tiles.expansion_slots(budget, 128)), kw
+
+
+@pytest.mark.parametrize("cull,budget_factor", [(False, 4.0), (True, 4.0), (True, 0.5)])
+def test_expand_keys_matches_plain(dev, cull, budget_factor):
+    """K7 against its plain version: keys and per-chunk counts exact (the
+    cull's arithmetic is written with round-to-nearest intrinsics); the
+    fused binning equals the K6 binning field by field."""
+    from gags_torch.splat import tiles
+
+    proj, t, args, kw = _key_inputs(dev, 20_000, cull, budget_factor)
+    kernels.reset_launch_counts()
+    keys, counts = kernels.expand_keys(*args, **kw)
+    want_keys, want_counts = kernels.expand_keys_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["expand_keys"] == 1
+    assert torch.equal(keys, want_keys) and torch.equal(counts, want_counts)
+    cull_rows = None
+    if cull:
+        from gags_torch.splat.rasterizer import _cull_rows
+
+        cull_rows = _cull_rows(proj, t["opacities"])
+    b = [tiles.bin_gaussians(proj.means2d, proj.radii_x, proj.depths, 320, 180, 16, 16,
+                             budget=int(budget_factor * 20_000), radii_y=proj.radii_y,
+                             cull_rows=cull_rows, fused_keys=fused) for fused in (False, True)]
+    for field in ("inst_gid", "tile_starts", "tile_counts", "num_valid", "overflow", "order"):
+        assert torch.equal(getattr(b[0], field), getattr(b[1], field)), field
+    if budget_factor < 1:
+        assert int(b[1].overflow) > 0
+
+
+def _k5_inputs(dev, cdim, saturate=False):
+    return _inputs(dev, 4000, cdim, tile=(32, 32), saturated=saturate)
+
+
+@pytest.mark.parametrize("cdim", [3, 16])
+@pytest.mark.parametrize("opt", ["fast_color_rows", "blend_bf16"])
+def test_blend_forward_bf16_options_match_plain(dev, cdim, opt):
+    args = _k5_inputs(dev, cdim)
+    got = kernels.blend_forward(*args, **{opt: True})
+    want = kernels.blend_forward_plain(*args, **{opt: True})
+    f32 = kernels.blend_forward_plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    assert float(err.mean()) <= 1e-5
+    assert float((err > 2e-5 + 1e-4 * want.abs()).float().mean()) < 1e-3
+    if opt == "blend_bf16":  # and the documented contract against f32
+        scale = float(f32[..., :cdim].abs().max())
+        d = (got[..., :cdim] - f32[..., :cdim]).abs()
+        assert float(d.max()) <= 5e-2 * scale and float(d.mean()) <= 5e-3 * scale
+        assert float((got[..., cdim] - f32[..., cdim]).abs().max()) <= 0.03
+
+
+@pytest.mark.parametrize("saturate", [False, True])
+def test_blend_forward_exit_stats_and_block_exit(dev, saturate):
+    args = _k5_inputs(dev, 16, saturate)
+    out, stats = kernels.blend_forward(*args, exit_stats=True)
+    out_p, stats_p = kernels.blend_forward_plain(*args, exit_stats=True)
+    plain_out = kernels.blend_forward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)  # the counters leave the image alone
+    assert torch.equal(kernels.blend_forward(*args, block_exit=True), plain_out)
+    s, sp = stats[:, 0, :5], stats_p[:, 0, :5]
+    assert not stats[:, 1:].any() and not stats[:, 0, 5:].any()
+    assert torch.equal(s[:, 1], sp[:, 1]) and torch.equal(s[:, 3], sp[:, 3])
+    moved = (s[:, 0] != sp[:, 0]) | (s[:, 2] != sp[:, 2])
+    assert int(moved.sum()) <= 1  # an isolated threshold flip
+    torch.testing.assert_close(s[~moved, 4], sp[~moved, 4], rtol=0, atol=1e-4)
+    if saturate:
+        assert int((s[:, 2] < s[:, 3]).sum()) > 0

@@ -139,10 +139,16 @@ def test_cpu_wrappers_launch_no_kernel():
                                          binned.tile_counts, g, torch.zeros_like(g[..., :1]),
                                          tx, ty, TH, TW)
     assert gc.shape == (binned.inst_gid.shape[0], 3) and gg.shape == (binned.inst_gid.shape[0], 8)
+    off = torch.tensor([0, 2, 2, 5], dtype=torch.int32)
+    packed = torch.tensor([1 << 20] * 4, dtype=torch.int32)
+    keys, counts = kernels.expand_keys(off, packed, torch.tensor(5, dtype=torch.int32), 1024,
+                                       shift=3, tiles_x=4, tile_w=16, tile_h=16)
+    # one-column rects (pw = 1): slot s of a rank lies s tiles down
+    assert counts.tolist() == [5] and keys[:5].tolist() == [0, 32, 2, 34, 66]
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "blend_forward_aligned", "blend_backward", "blend_backward_full", "sorted_segment_sum",
-        "dense_segment_sum", "blend_forward", "expand_gid"}
+        "dense_segment_sum", "blend_forward", "expand_gid", "expand_keys"}
 
 
 def test_library_path_follows_included_headers(tmp_path):

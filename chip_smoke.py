@@ -37,7 +37,11 @@ Phases, each of which fails the run:
   8. K1-K4 against their plain versions on camera 0's binning (overflow 0
      at budget factor 4) and the real cotangents of its loss, with times,
      bounds and index_add_ yardsticks (K4 at 1025 and 4097 segments, for
-     2 and 33 channels); profile one training step;
+     2 and 33 channels; K3 on K2's rows, C = 16, also against index_add_
+     over inst_gid and bit-identical on a second launch, with an index_add_
+     yardstick over the live slots and one over all of inst_gid); K3, K4
+     and their yardsticks as device time per call (torch.profiler) beside
+     the CUDA-events time; profile one training step;
   9. serve the trained model dir (load_server) and check one relevancy map;
  9b. inference options: (a) K7 expand_keys against its plain version on
      the projection of make_scene(250_000) at 1280x720 and of
@@ -81,12 +85,14 @@ Phases, each of which fails the run:
      the CPU test's tolerance, column by column (each colour channel and
      each of mx, my, ca, cb, cc, opacity against its own scale), and the
      means2d tap's gradient (K8 then K3) against the plain version's mx, my
-     rows summed per Gaussian; with K8's time, bound and plain time;
+     rows summed per Gaussian; with K8's time, bound and plain time; then
+     K3 at the RGB widths on K8's colour (C = 3) and geometry (C = 8) rows
+     over camera 0's ReductionLayout, checked and timed as in phase 8;
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
      0: its PSNR against the ground truth must exceed the seed cloud's;
  14. print {"kernels": [...]} with times, bounds and launch counts of
-     K1-K8, then the card's name and power limit, then the final
-     {"ok": true, ...}.
+     K1-K8 (K3 by width: GAD C = 16, RGB C = 3 and 8), then the card's
+     name and power limit, then the final {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -242,12 +248,14 @@ def count_syncs(fn) -> dict:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """'<kernel>[<C>]: N registers, S bytes spill stores' per entry function."""
+    """'<kernel><T>: N registers, S bytes spill stores' per entry function,
+    T its first integer template argument (the blends' channel count, K3's
+    vector width, K4's strip length)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line.split("'")[1])
-            name = m.group(1) + (f"[C={m.group(2)}]" if m.group(2) else "")
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
             name += "[bf16]" if "bfloat16" in line else ""
         elif "spill stores" in line:
             spill = line.split(",")[1].strip()
@@ -277,6 +285,67 @@ def sum_compare(got: torch.Tensor, want: torch.Tensor, abs_sum: torch.Tensor, wh
     print(f"# {what}: {res}", flush=True)
     if not torch.isfinite(got).all() or bool((err > rtol * abs_sum).any()):
         fail(f"{what} disagrees with its plain version: {res}")
+    return res
+
+
+DEVICE_TIMING = ("ms, library_ms, library_all_slots_ms: device time per call (torch.profiler); "
+                 "events_ms, library_*events_ms: back-to-back calls between CUDA events")
+
+
+def with_bound(r: dict) -> dict:
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
+    r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+    return r
+
+
+def k3_check(kernels, rows: torch.Tensor, b, num_ranks: int, what: str) -> dict:
+    """K3 over binning b's ReductionLayout, as the rasterizer's backward
+    calls it: against its plain version and against index_add_ over
+    inst_gid (sum_compare), bit-identical on a second launch; its device
+    and events times, bytes bound, plain time and the index_add_
+    yardsticks' times: library_ms over the live slots (inst_gid below
+    num_ranks, selected before timing), library_all_slots_ms over all of
+    inst_gid, whose dummies and fillers all add into the sentinel row."""
+    red, c, dev = b.red, rows.shape[1], rows.device
+    args = (rows, red.slot_to_pos, red.slot_rank, red.chunk_block, num_ranks)
+    got = kernels.sorted_segment_sum(*args)
+    again = kernels.sorted_segment_sum(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = kernels.sorted_segment_sum_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, again):
+        fail(f"K3 {what}: two launches differ at {int((got != again).sum())} values")
+    abs_sum = kernels.sorted_segment_sum_plain(rows.abs(), *args[1:])
+    cmp = sum_compare(got, want, abs_sum, f"K3 sorted_segment_sum {what}")
+    gid_l = b.inst_gid.long()
+    all_fn = lambda: torch.zeros((num_ranks + 1, c), device=dev).index_add_(  # noqa: E731
+        0, gid_l, rows)
+    sum_compare(got, all_fn()[:num_ranks], abs_sum, f"K3 {what} vs index_add_")
+    live = gid_l < num_ranks
+    gid_live, rows_live = gid_l[live], rows[live]
+    lib_fn = lambda: torch.zeros((num_ranks, c), device=dev).index_add_(  # noqa: E731
+        0, gid_live, rows_live)
+    sum_compare(got, lib_fn(), abs_sum, f"K3 {what} vs index_add_ over the live slots")
+    fn = lambda: kernels.sorted_segment_sum(*args)  # noqa: E731
+    # what this layout needs: the rows and slot entries of the instances of
+    # ranks below num_ranks, chunk_block, the sums (dummies, fillers and
+    # padding are never read)
+    per_rank = torch.bincount(gid_l, minlength=num_ranks + 1)[:num_ranks]
+    inst = int(per_rank.sum())
+    nbytes = (inst * (c + 2) + red.chunk_block.numel() + got.numel()) * 4
+    res = with_bound(dict(
+        ms=device_ms(fn), events_ms=cuda_ms(fn, 50), plain_ms=plain_ms,
+        bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=inst * c / FP32_OPS_PER_S * 1e3,
+        library_ms=device_ms(lib_fn), library_events_ms=cuda_ms(lib_fn, 50),
+        library_all_slots_ms=device_ms(all_fn), library_all_slots_events_ms=cuda_ms(all_fn, 50),
+        channels=c,
+        instances=inst, slots=red.slot_rank.numel(), ranks=num_ranks,
+        # ranks of more than 16 slots take K3's warp path
+        max_slots_per_rank=int(per_rank.max()), ranks_over_16_slots=int((per_rank > 16).sum()),
+        bit_identical=True, **cmp))
+    print(f"# K3 {what}: {res}", flush=True)
     return res
 
 
@@ -499,31 +568,12 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         del grad_p
 
         # K3, on K2's rows
-        red = b.red
-        a3 = (grad_k, red.slot_to_pos, red.slot_rank, red.chunk_block, n)  # as _Blend calls it
-        got = kernels.sorted_segment_sum(*a3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = kernels.sorted_segment_sum_plain(*a3)
-        torch.cuda.synchronize()
-        k3_plain = (time.perf_counter() - t0) * 1e3
-        abs_sum = kernels.sorted_segment_sum_plain(grad_k.abs(), *a3[1:])
-        cmp3 = sum_compare(got, want, abs_sum, f"K3 sorted_segment_sum C={fdim}")
-        gid_l = b.inst_gid.long()
-        lib = torch.zeros((n + 1, fdim), device=dev).index_add_(0, gid_l, grad_k)
-        sum_compare(got, lib[:n], abs_sum, "K3 vs index_add_")
-        nbytes = (grad_k.numel() + 2 * red.slot_rank.numel() + red.chunk_block.numel()
-                  + got.numel()) * 4
+        k3 = k3_check(kernels, grad_k, b, n, f"GAD C={fdim}")
         report.append(dict(
             name="sorted_segment_sum", id="K3", route="cuda",
             source="gags_torch/splat/csrc/sorted_segment_sum.cu",
             replaces="gags_tpu/splat/pallas_kernel.py:1431",
-            ms=cuda_ms(lambda: kernels.sorted_segment_sum(*a3), 50), plain_ms=k3_plain,
-            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-            ops_ms=grad_k.numel() / FP32_OPS_PER_S * 1e3,
-            library_ms=cuda_ms(lambda: torch.zeros((n + 1, fdim), device=dev).index_add_(
-                0, gid_l, grad_k), 50),
-            **cmp3))
+            timing=DEVICE_TIMING, **k3))
 
         # K4 at 1025 and 4097 segments, 2 and 33 channels
         ids = (seg_mixed + 1).reshape(-1).to(torch.int32).contiguous()
@@ -552,20 +602,22 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
                 cmp4 = sum_compare(got.double(), want, abs_sum,
                                    f"K4 dense_segment_sum S={segs} C={c}", rtol=rtol)
                 nbytes = (vals.numel() + ids.numel() + got.numel()) * 4
+                k4_fn = lambda: kernels.dense_segment_sum(vals, ids, segs)  # noqa: E731
+                lib_fn = lambda: torch.zeros((segs, c), device=dev).index_add_(  # noqa: E731
+                    0, ids_l, vals)
                 k4[f"S={segs},C={c}"] = dict(
-                    ms=cuda_ms(lambda: kernels.dense_segment_sum(vals, ids, segs), 50),
+                    ms=device_ms(k4_fn), events_ms=cuda_ms(k4_fn, 50),
                     plain_ms=plain_ms, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     ops_ms=vals.numel() / FP32_OPS_PER_S * 1e3,
-                    library_ms=cuda_ms(lambda: torch.zeros((segs, c), device=dev).index_add_(
-                        0, ids_l, vals), 50),
+                    library_ms=device_ms(lib_fn), library_events_ms=cuda_ms(lib_fn, 50),
                     **cmp4)
-                print(f"# K4 S={segs} C={c}: {k4[f'S={segs},C={c}']}", flush=True)
+                print(f"# K4 S={segs} C={c}: {k4[f'S={segs},C={c}']} ({gpu})", flush=True)
         head = k4[f"S={cfg.max_segments + 1},C={1 + 2 * fdim}"]
         report.append(dict(
             name="dense_segment_sum", id="K4", route="cuda",
             source="gags_torch/splat/csrc/dense_segment_sum.cu",
             replaces="gags_tpu/splat/pallas_kernel.py:1853",
-            **head, by_config=k4))
+            timing=DEVICE_TIMING, **head, by_config=k4))
         for r in report[:2]:
             print(f"# {r['id']} {r['name']}: ms {r['ms']:.4f}, plain {r['plain_ms']:.1f} ms, "
                   f"bound {max(r['bytes_ms'], r['ops_ms']):.4f} ms ({gpu})", flush=True)
@@ -596,8 +648,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         r["launches"] = launches[r["name"]]
         r["launches_per_step"] = launches[r["name"]] / TRAIN_STEPS
         r["check"] = "ok"
-        r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-        r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+        with_bound(r)
     report[0]["train_steps"] = steps
     return report, extra
 
@@ -687,8 +738,7 @@ def k7_phase(dev: torch.device, gpu: str) -> dict:
                 chain_events_ms=cuda_ms(lambda: kernels.slot_keys(
                     kernels.expand_gid(offsets, mk), offsets, packed_p, nv, **kw), 50),
                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3)
-            r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
-            r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+            with_bound(r)
             out[f"{label}, cull {'on' if cull else 'off'}"] = r
             print(f"# {what}: exact; {r} ({gpu})", flush=True)
         if not int(bins[True][True].num_valid) < int(bins[False][True].num_valid):
@@ -1008,7 +1058,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
     """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
     the step's times and profile, K8 against its plain version on the
     trained state with the loss's real cotangents, and the snapshot PLY
-    rendered. Returns K8's report entry."""
+    rendered. Returns K8's report entry and K3's at the RGB widths."""
     import dataclasses
 
     from gags_torch.cli.train_rgb import RunConfig, run
@@ -1187,11 +1237,15 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
             instances=int(b.num_valid), slots=b.inst_gid.numel(), budget_factor=factor,
             check_resolution=f"{w}x{h}", by_output=cmp8, rgb_steps=steps,
             rgb_launches={k: v for k, v in launches.items() if v})
-        k8["bound_ms"] = max(k8["bytes_ms"], k8["ops_ms"])
-        k8["bound_by"] = "bytes" if k8["bytes_ms"] >= k8["ops_ms"] else "operations"
+        with_bound(k8)
         print(f"# K8 blend_backward_full: ms {k8['ms']:.4f}, plain {plain_ms:.1f} ms, bound "
               f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}), {walked} pairs walked, {blended} "
               f"blended, {k8['instances']} instances ({gpu})", flush=True)
+        # K3 at the RGB widths, on K8's real colour and geometry rows, for
+        # the n ranks (as _BlendFull's backward calls it)
+        k3_rgb = {f"RGB C={r.shape[1]}": k3_check(kernels, r, b, n_g, f"RGB C={r.shape[1]}")
+                  for r in got}
+        del got, want_col, want_geo
 
         # -- 13. the snapshot PLY renders, closer to camera 0 than the seed --
         ply = os.path.join(model, "point_cloud", f"iteration_{RGB_STEPS}", "point_cloud.ply")
@@ -1213,7 +1267,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                  f"cloud's {db['seed']} dB")
         print(f"# snapshot PLY: {scene.num_gaussians} Gaussians, camera 0 PSNR "
               f"{db['snapshot']:.3f} dB (seed cloud {db['seed']:.3f} dB)", flush=True)
-    return k8
+    return k8, k3_rgb
 
 
 def main() -> int:
@@ -1438,7 +1492,12 @@ def main() -> int:
     del serve_k5, cols_f
 
     # -- 10-13. RGB pretraining, K8 ---------------------------------------------
-    rgb_kernels = [rgb_phase(dev, gpu)]
+    k8, k3_rgb = rgb_phase(dev, gpu)
+    rgb_kernels = [k8]
+    for r in k3_rgb.values():  # two launches a step: C = 3 and C = 8
+        r["launches"] = k8["rgb_launches"]["sorted_segment_sum"] // 2
+    k3 = next(r for r in train_kernels if r["id"] == "K3")
+    k3["by_width"] = {"GAD C=16": {k: k3[k] for k in k3_rgb["RGB C=3"]}, **k3_rgb}
 
     # -- 14. report --------------------------------------------------------------
     f16 = k5["features"]

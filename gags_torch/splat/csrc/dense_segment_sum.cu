@@ -11,67 +11,85 @@
 // default of 4097 segments too.
 //
 // What bounds it on the H100: bytes (P * C floats and P ids read once,
-// S * C sums written once) in principle; in practice the atomic additions,
-// since neighbouring pixels mostly share a segment.
+// S * C sums written once). The first design built a histogram of S x 7
+// channels in shared memory per block of 4096 pixels: at S = 4097 two
+// thirds of its shared-memory traffic went to zeroing and flushing
+// accumulators, every block read 7 of a row's 33 columns, and it ran
+// slower than one index_add_ at C = 33 (PERF.md section 6 has both
+// designs' times, timed in turns on one card).
 //
-// Design (simple first): a histogram in shared memory. Each block takes a
-// span of pixels and a slice of CS channels such that the S * CS float
-// accumulators fit in the opt-in shared memory (at most 128 KiB here):
-// 1025 segments x 31 channels, or 4097 segments x 7 channels. Consecutive
-// threads take consecutive (pixel, channel) pairs, so a warp's
-// shared-memory atomicAdds spread over CS addresses even where its pixels
-// share a segment. The block then adds its non-zero accumulators to the
-// zeroed output with global atomicAdds. The order of the additions varies
-// from run to run at the float-rounding level. Where even one channel of
-// S segments exceeds the budget (S > 32768), the blocks add straight into
-// the output with global atomics.
+// Design: the ids are SAM masks, piecewise constant along image rows, so
+// neighbouring pixels mostly share a segment. Each thread takes one
+// channel of a strip of consecutive pixels, loads the strip's ids and
+// values into registers (all loads in flight at once; consecutive threads
+// take consecutive channels of the same pixel, so a warp's loads are
+// contiguous), adds while the id holds and sends each run's sum to the
+// output with one atomicAdd (compiled to red.global.add.f32; the output,
+// S x C floats, stays in L2). Atomics scale with runs x C, not with
+// pixels x C, and nothing scales with S: no shared memory, no zeroing, any
+// segment count. Strips are 32 pixels where that gives the card enough
+// threads (C = 33 at 640x360: 237,600), else 8 (C = 2: 57,600). The order
+// of the additions varies from run to run at the float-rounding level.
+// Device time per call on the GAD path (chip_smoke.py, NVIDIA H100 80GB
+// HBM3, 700.00 W; the output's zeroing included): S = 4097, C = 33,
+// 0.0155 ms against a 0.0095 ms bytes bound; C = 2, 0.0101 ms against
+// 0.0008 ms: the fixed cost of two small kernels.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPixelsPerBlock = 4096;
-constexpr int kSmemBudget = 128 * 1024;
+constexpr long long kFill = 2LL * 132 * kThreads;  // two blocks per SM
 
+template <int kStrip>
 __global__ void __launch_bounds__(kThreads)
 dense_segment_sum_kernel(const float* __restrict__ values,
                          const int* __restrict__ ids, float* __restrict__ out,
                          int num_pixels, int channels, int num_segments,
-                         int slice) {
-  extern __shared__ float acc[];  // (num_segments, slice) when slice > 0
-  const int p0 = blockIdx.x * kPixelsPerBlock;
-  const int np = min(kPixelsPerBlock, num_pixels - p0);
-  const int cs = slice > 0 ? slice : channels;
-  const int c0 = blockIdx.y * cs;
-  const int cw = min(cs, channels - c0);
-  const bool shared = slice > 0;
-  if (shared) {
-    for (int i = threadIdx.x; i < num_segments * cs; i += blockDim.x)
-      acc[i] = 0.0f;
-    __syncthreads();
+                         long long items) {
+  const long long item = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (item >= items) return;
+  const int strip = static_cast<int>(item / channels);
+  const int c = static_cast<int>(item - static_cast<long long>(strip) * channels);
+  const int p0 = strip * kStrip;
+  const int np = min(kStrip, num_pixels - p0);
+  int id[kStrip];
+  float v[kStrip];
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) {
+    if (i < np) {
+      id[i] = ids[p0 + i];
+      v[i] = values[static_cast<size_t>(p0 + i) * channels + c];
+    }
   }
-  for (int i = threadIdx.x; i < np * cw; i += blockDim.x) {
-    const int pl = i / cw;
-    const int c = i - pl * cw;
-    const int p = p0 + pl;
-    const int s = ids[p];
-    if (s < 0 || s >= num_segments) continue;
-    const float v = values[static_cast<size_t>(p) * channels + c0 + c];
-    if (shared)
-      atomicAdd(&acc[s * cs + c], v);
-    else
-      atomicAdd(&out[static_cast<size_t>(s) * channels + c0 + c], v);
+  int cur = id[0];
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) {
+    if (i < np) {
+      if (id[i] != cur) {
+        if (cur >= 0 && cur < num_segments)
+          atomicAdd(&out[static_cast<size_t>(cur) * channels + c], acc);
+        cur = id[i];
+        acc = 0.0f;
+      }
+      acc += v[i];
+    }
   }
-  if (!shared) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < num_segments * cs; i += blockDim.x) {
-    const int s = i / cs;
-    const int c = i - s * cs;
-    const float v = acc[i];
-    if (c < cw && v != 0.0f)
-      atomicAdd(&out[static_cast<size_t>(s) * channels + c0 + c], v);
-  }
+  if (cur >= 0 && cur < num_segments)
+    atomicAdd(&out[static_cast<size_t>(cur) * channels + c], acc);
+}
+
+template <int kStrip>
+int launch(const void* values, const void* ids, void* out, int num_pixels,
+           int channels, int num_segments, cudaStream_t stream) {
+  const long long items = (num_pixels + kStrip - 1LL) / kStrip * channels;
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  dense_segment_sum_kernel<kStrip><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const float*>(values), static_cast<const int*>(ids),
+      static_cast<float*>(out), num_pixels, channels, num_segments, items);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -82,35 +100,16 @@ const char* gags_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Channels per block for `num_segments` segments (0: global atomics).
-int gags_dense_segment_sum_slice(int num_segments, int channels) {
-  const int fit = kSmemBudget / (4 * num_segments);
-  return fit < channels ? fit : channels;
-}
-
 // values (P, C) f32, ids (P,) i32, out (S, C) f32 ZEROED. Launches on
-// `stream` and returns the first CUDA error of the set-up or the launch.
+// `stream` and returns the first CUDA error of the launch.
 int gags_dense_segment_sum(const void* values, const void* ids, void* out,
                            int num_pixels, int channels, int num_segments,
                            void* stream) {
   if (num_pixels <= 0 || channels <= 0 || num_segments <= 0) return 0;
-  const int slice = gags_dense_segment_sum_slice(num_segments, channels);
-  const int cs = slice > 0 ? slice : channels;
-  const size_t smem =
-      slice > 0 ? static_cast<size_t>(num_segments) * slice * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dense_segment_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((num_pixels + kPixelsPerBlock - 1) / kPixelsPerBlock,
-                  (channels + cs - 1) / cs);
-  dense_segment_sum_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(values), static_cast<const int*>(ids),
-      static_cast<float*>(out), num_pixels, channels, num_segments, slice);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if ((num_pixels + 31LL) / 32 * channels >= kFill)
+    return launch<32>(values, ids, out, num_pixels, channels, num_segments, s);
+  return launch<8>(values, ids, out, num_pixels, channels, num_segments, s);
 }
 
 }  // extern "C"

@@ -697,17 +697,18 @@ def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
 def sorted_segment_sum_plain(rows, slot_to_pos, slot_rank, chunk_block,
                              num_ranks, chunk=128):
     """out[b * chunk + r] = sum of rows[slot_to_pos[s]] over the slots s of
-    chunks with chunk_block == b and slot_rank[s] == r (-1 = padding)."""
+    chunks with chunk_block == b and slot_rank[s] == r (-1 = padding), for
+    the ranks below num_ranks (the sentinel rank's block lies past them
+    when num_ranks is a multiple of chunk)."""
     m, c = rows.shape
     ext = torch.cat([rows, torch.zeros((1, c), dtype=rows.dtype, device=rows.device)])
     got = ext[slot_to_pos.long().clamp(0, m)]
     block = chunk_block.long().repeat_interleave(chunk)
     rank = block * chunk + slot_rank.long()
-    keep = slot_rank >= 0
-    nb = -(-num_ranks // chunk)
-    out = torch.zeros((nb * chunk, c), dtype=torch.float32, device=rows.device)
+    keep = (slot_rank >= 0) & (rank < num_ranks)
+    out = torch.zeros((num_ranks, c), dtype=torch.float32, device=rows.device)
     out.index_add_(0, rank[keep], got[keep])
-    return out[:num_ranks]
+    return out
 
 
 def sorted_segment_sum(rows, slot_to_pos, slot_rank, chunk_block, num_ranks,

@@ -124,37 +124,91 @@ def test_blend_backward_matches_plain(dev, cdim, tile):
     assert float(err.mean()) <= 1e-5
 
 
-def test_sorted_segment_sum_matches_plain(dev):
-    binned, _, _, _, _ = _aligned_inputs(dev, 20_000, 16, tile=(32, 32))
+def _heavy_aligned_inputs(dev, n, cdim):
+    """An aligned binning at 320x180 in 16x16 tiles (240 tiles) where one
+    Gaussian covers every tile and 40 more cover tens of tiles each: ranks
+    with many slots, as a large splat near the camera gives."""
+    raw = make_scene(n, seed=3, extent=3.0, feature_dim=cdim)
+    raw["means"][0] = (0.0, 0.0, 6.0)
+    raw["scales"][0] = 3.0
+    raw["scales"][1:41] = 0.25
+    cam = make_camera(320, 180, device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+    cfg = RasterizeConfig(tile_h=16, tile_w=16, chunk=128)
+    _, binned, _, tx, ty = _prepare(t["means"], t["quats"], t["scales"], t["opacities"],
+                                    cam.viewmat, cam.K, 320, 180, cfg)
+    rank0 = int((binned.order == 0).nonzero()[0, 0])
+    assert int((binned.inst_gid == rank0).sum()) == tx * ty  # the heavy rank
+    return binned
+
+
+@pytest.mark.parametrize("heavy", [False, True])
+@pytest.mark.parametrize("cdim", [3, 8, 16])
+def test_sorted_segment_sum_matches_plain(dev, cdim, heavy):
+    if heavy:
+        binned = _heavy_aligned_inputs(dev, 20_000, cdim)
+    else:
+        binned, _, _, _, _ = _aligned_inputs(dev, 20_000, cdim, tile=(32, 32))
     red = binned.red
     m = binned.inst_gid.shape[0]
     n = binned.order.shape[0]
-    rows = torch.as_tensor(np.random.default_rng(1).normal(size=(m, 16)), dtype=torch.float32,
-                           device=dev)
+    rows = torch.as_tensor(np.random.default_rng(cdim).normal(size=(m, cdim)),
+                           dtype=torch.float32, device=dev)
     rows[binned.inst_gid == n] = 0.0  # dummies and fillers: K2 leaves them zero
-    got = kernels.sorted_segment_sum(rows, red.slot_to_pos, red.slot_rank, red.chunk_block, n + 1)
-    want = kernels.sorted_segment_sum_plain(rows, red.slot_to_pos, red.slot_rank,
-                                            red.chunk_block, n + 1)
-    lib = torch.zeros((n + 1, 16), device=dev).index_add_(0, binned.inst_gid.long(), rows)
+    args = (rows, red.slot_to_pos, red.slot_rank, red.chunk_block)
+    kernels.reset_launch_counts()
+    got = kernels.sorted_segment_sum(*args, n + 1)
+    again = kernels.sorted_segment_sum(*args, n + 1)
+    real = kernels.sorted_segment_sum(*args, n)  # as the rasterizer's backward asks
+    want = kernels.sorted_segment_sum_plain(*args, n + 1)
+    lib = torch.zeros((n + 1, cdim), device=dev).index_add_(0, binned.inst_gid.long(), rows)
     torch.cuda.synchronize()
-    # a rank sums a few rows: only the order of those few additions differs
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(got, lib, rtol=1e-5, atol=1e-6)
+    assert kernels.launch_counts["sorted_segment_sum"] == 3
+    assert torch.equal(got, again)  # a fixed order of additions
+    assert torch.equal(real, got[:n])
+    if heavy:
+        # a rank of 240 slots: both sides round in their own order, so each
+        # sum is held to 1e-5 of its terms' absolute sum (as chip_smoke.py's
+        # sum_compare); an absolute bound fails where the terms cancel
+        abs_sum = kernels.sorted_segment_sum_plain(rows.abs(), *args[1:], n + 1)
+        assert bool(((got - want).abs() <= 1e-5 * abs_sum).all())
+        assert bool(((got - lib).abs() <= 1e-5 * abs_sum).all())
+    else:
+        # a rank sums a few rows: only the order of those few additions differs
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got, lib, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("segments,cdim", [(17, 2), (1025, 2), (1025, 33), (4097, 33), (40000, 3)])
-def test_dense_segment_sum_matches_plain(dev, segments, cdim):
-    rng = np.random.default_rng(segments)
-    p = 230_400
-    blocks = rng.integers(-1, segments + 2, size=p // 64)  # runs of 64 pixels, some out of range
-    ids = torch.as_tensor(np.repeat(blocks, 64).astype(np.int32), device=dev)
+def _segment_ids(kind, p, segments, rng):
+    if kind == "runs":  # runs of 64 pixels, some out of range
+        return np.repeat(rng.integers(-1, segments + 2, size=-(-p // 64)), 64)[:p]
+    if kind == "iid":  # no runs at all
+        return rng.integers(-1, segments + 2, size=p)
+    if kind == "one":  # one segment everywhere
+        return np.full(p, segments // 2)
+    assert kind == "out"  # every id out of range
+    return rng.choice([-7, -1, segments, segments + 5], size=p)
+
+
+@pytest.mark.parametrize("kind,segments,cdim,p", [
+    ("runs", 17, 2, 230_400), ("runs", 1025, 2, 230_400), ("runs", 1025, 33, 230_400),
+    ("runs", 4097, 33, 230_400), ("runs", 40000, 3, 230_400),
+    ("iid", 4097, 33, 230_400), ("one", 4097, 33, 230_400), ("out", 4097, 2, 230_400),
+    ("runs", 4097, 33, 230_417), ("runs", 4097, 1, 100_003), ("runs", 4097, 128, 230_400)])
+def test_dense_segment_sum_matches_plain(dev, kind, segments, cdim, p):
+    rng = np.random.default_rng(segments + cdim)
+    ids = torch.as_tensor(_segment_ids(kind, p, segments, rng).astype(np.int32), device=dev)
     vals = torch.as_tensor(rng.normal(size=(p, cdim)), dtype=torch.float32, device=dev)
+    vals[:, 0] = 1.0  # column 0 counts the pixels of each segment
     kernels.reset_launch_counts()
     got = kernels.dense_segment_sum(vals, ids, segments)
     want = kernels.dense_segment_sum_plain(vals.double(), ids, segments)
     torch.cuda.synchronize()
     assert kernels.launch_counts["dense_segment_sum"] == 1
-    # float32 sums of up to ~14k unit normals, added by atomics in no fixed
+    assert torch.equal(got[:, 0].double(), want[:, 0])  # counts exact
+    if kind == "out":
+        assert not got.any()
+    # float32 sums of up to ~230k unit normals, added by atomics in no fixed
     # order, against a float64 sum: the rounding of the running sum grows
     # with the count, so the bound is absolute
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=2e-3)

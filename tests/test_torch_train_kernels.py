@@ -81,7 +81,7 @@ def test_blend_backward_plain_matches_pallas(cdim, seed):
     assert np.abs(got).max() > 0.1
 
 
-@pytest.mark.parametrize("n,seed,cdim", [(150, 6, 16), (400, 7, 3)])
+@pytest.mark.parametrize("n,seed,cdim", [(150, 6, 16), (400, 7, 3), (200, 9, 8), (256, 10, 8)])
 def test_sorted_segment_sum_plain_matches_pallas(n, seed, cdim):
     binned, _, _, _, _ = _binning(n, seed, cdim)
     red = binned.red
@@ -96,21 +96,46 @@ def test_sorted_segment_sum_plain_matches_pallas(n, seed, cdim):
         rows_u16, jnp.asarray(red.slot_rank.numpy()), jnp.asarray(red.chunk_block.numpy()),
         num_ranks=n + 1, interpret=True))
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6)
+    # the n real ranks, as the rasterizer's backward asks (the layout's
+    # blocks hold 128 ranks: at n = 256 the sentinel rank's block lies past
+    # them)
+    real = kernels.sorted_segment_sum(torch.as_tensor(rows), red.slot_to_pos, red.slot_rank,
+                                      red.chunk_block, n).numpy()
+    np.testing.assert_array_equal(real, got[:n])
     # and the definition: per-rank sums over inst_gid
     np.testing.assert_allclose(got, jax.ops.segment_sum(rows, binned.inst_gid.numpy(), n + 1),
                                atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("segments,cdim", [(17, 2), (33, 5), (1025, 2), (1025, 33)])
-def test_dense_segment_sum_plain_matches_pallas(segments, cdim):
+@pytest.mark.parametrize("segments,cdim,kind", [
+    pytest.param(17, 2, "iid", id="17-2"), pytest.param(33, 5, "iid", id="33-5"),
+    pytest.param(1025, 2, "iid", id="1025-2"), pytest.param(1025, 33, "iid", id="1025-33"),
+    pytest.param(17, 2, "runs", id="runs-17-2"), pytest.param(1025, 33, "runs", id="runs-1025-33"),
+    pytest.param(1025, 33, "one", id="one-1025-33"), pytest.param(33, 5, "one", id="one-33-5")])
+def test_dense_segment_sum_plain_matches_pallas(segments, cdim, kind):
     rng = np.random.default_rng(segments + cdim)
     p = 3000
-    ids = rng.integers(-3, segments + 4, size=p).astype(np.int32)  # some out of range
+    if kind == "iid":  # some out of range
+        ids = rng.integers(-3, segments + 4, size=p)
+    elif kind == "runs":  # runs of 64 pixels, as SAM masks along a row; some out of range
+        ids = np.repeat(rng.integers(-3, segments + 4, size=-(-p // 64)), 64)[:p]
+    else:  # one segment everywhere
+        ids = np.full(p, segments // 2)
+    ids = ids.astype(np.int32)
     vals = rng.normal(size=(p, cdim)).astype(np.float32)
     got = kernels.dense_segment_sum(torch.as_tensor(vals), torch.as_tensor(ids), segments).numpy()
     want = np.asarray(pk.dense_segment_sum_fwd(jnp.asarray(vals), jnp.asarray(ids), segments,
                                                interpret=True))
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    if kind == "one":
+        # one segment sums all p terms, and two float32 orders differ by
+        # ~u * sqrt(p) of the terms' absolute sum: held at 4x that (the
+        # bound chip_smoke.py holds K4 to); every other row exactly zero
+        s = segments // 2
+        bound = 4 * 2.0 ** -24 * np.sqrt(p) * np.abs(vals).sum(0)
+        assert (np.abs(got[s] - want[s]) <= bound).all()
+        assert not np.delete(got, s, 0).any() and not np.delete(want, s, 0).any()
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_dense_segment_sum_plain_matches_segment_sum_4097():

@@ -14,7 +14,8 @@ Phases, each of which fails the run:
   4. K5 blend_forward vs its plain version on the full 1280x720 frame, for
      the 16 feature channels and the 3 SH colour channels: atol 2e-5 /
      rtol 1e-4 with the NUMERICS.md allowance for isolated threshold flips
-     (at most 0.01% of values outside, mean abs error <= 1e-5);
+     (at most 0.01% of values outside, mean abs error <= 1e-5); its device
+     time per call (torch.profiler) beside the CUDA-events time;
   5. serve the bench scene (make_scene(250_000, seed=0, extent=3.0), 16-dim
      features, full-width decoders from a seeded torch.Generator) through
      SceneServer behind ThreadingHTTPServer on 127.0.0.1: /health,
@@ -36,7 +37,9 @@ Phases, each of which fails the run:
      must stay finite; step times from CUDA events;
   8. K1-K4 against their plain versions on camera 0's binning (overflow 0
      at budget factor 4) and the real cotangents of its loss, with times,
-     bounds and index_add_ yardsticks (K4 at 1025 and 4097 segments, for
+     bounds and index_add_ yardsticks (K1 and K2 by device time per call
+     beside the CUDA-events time, K2 bit-identical on a second launch; K4
+     at 1025 and 4097 segments, for
      2 and 33 channels; K3 on K2's rows, C = 16, also against index_add_
      over inst_gid and bit-identical on a second launch, with an index_add_
      yardstick over the live slots and one over all of inst_gid); K3, K4
@@ -85,7 +88,9 @@ Phases, each of which fails the run:
      the CPU test's tolerance, column by column (each colour channel and
      each of mx, my, ca, cb, cc, opacity against its own scale), and the
      means2d tap's gradient (K8 then K3) against the plain version's mx, my
-     rows summed per Gaussian; with K8's time, bound and plain time; then
+     rows summed per Gaussian; once more with a seeded N(0, 1) alpha
+     cotangent (the loss gives 0); bit-identical on a second launch; with
+     K8's device time per call, events time, bound and plain time; then
      K3 at the RGB widths on K8's colour (C = 3) and geometry (C = 8) rows
      over camera 0's ReductionLayout, checked and timed as in phase 8;
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
@@ -177,11 +182,15 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    # each kernel's time per launch times its launches per call: the
+    # profiler loses records (on the H100 it kept 19 of 20 launches of a
+    # call's last kernel in every run, and once about half of them), so a
+    # sum over the run divided by the calls reads low
+    busy = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count)
     if busy <= 0:
         fail("torch.profiler recorded no device time")
-    return busy / 1e3 / iters
+    return busy / 1e3
 
 
 def flip_tolerant_compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
@@ -290,6 +299,15 @@ def sum_compare(got: torch.Tensor, want: torch.Tensor, abs_sum: torch.Tensor, wh
 
 DEVICE_TIMING = ("ms, library_ms, library_all_slots_ms: device time per call (torch.profiler); "
                  "events_ms, library_*events_ms: back-to-back calls between CUDA events")
+
+
+def tile_stats(counts: torch.Tensor) -> dict:
+    """Instances per tile of a binning: the length of each tile's walk in
+    the blends (K1, K2, K8 take a tile per cluster or block)."""
+    c = counts.double()
+    q = torch.quantile(c, torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64, device=c.device))
+    return dict(tiles=c.numel(), mean=float(c.mean()), median=float(q[0]), p90=float(q[1]),
+                max=float(q[2]))
 
 
 def with_bound(r: dict) -> dict:
@@ -529,19 +547,25 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel()
                   + 2 * b.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
         ops = 16 * walked + (4 + 2 * fdim) * blended
+        k1_fn = lambda: kernels.blend_forward_aligned(*a1)  # noqa: E731
         report.append(dict(
             name="blend_forward_aligned", id="K1", route="cuda",
             source="gags_torch/splat/csrc/blend_forward.cu",
             replaces="gags_tpu/splat/pallas_kernel.py:1909",
-            ms=cuda_ms(lambda: kernels.blend_forward_aligned(*a1), 20), plain_ms=k1_plain,
+            ms=device_ms(k1_fn), events_ms=cuda_ms(k1_fn, 20), plain_ms=k1_plain,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
-            library_ms=None, pairs_walked=walked, pairs_blended=blended, **cmp1))
+            library_ms=None, pairs_walked=walked, pairs_blended=blended, timing=DEVICE_TIMING,
+            **cmp1))
         del out_k, out_p
 
         # K2
         a2 = (geom_p, b.inst_gid, b.tile_starts, b.tile_counts, g_tiles, tx, ty, th, tw)
         grad_k = kernels.blend_backward(*a2)
+        again = kernels.blend_backward(*a2)
         torch.cuda.synchronize()
+        if not torch.equal(grad_k, again):  # one writer per row, a fixed order of addition
+            fail(f"K2: two launches differ at {int((grad_k != again).sum())} values")
+        del again
         t0 = time.perf_counter()
         grad_p, walked2, blended2 = kernels.blend_backward_plain(*a2, return_pairs=True)
         torch.cuda.synchronize()
@@ -557,14 +581,16 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         nbytes = (geom_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
                   + g_tiles.numel() + grad_k.numel()) * 4
         ops = 16 * walked2 + 2 * fdim * blended2
+        k2_fn = lambda: kernels.blend_backward(*a2)  # noqa: E731
         report.append(dict(
             name="blend_backward", id="K2", route="cuda",
             source="gags_torch/splat/csrc/blend_backward.cu",
             replaces="gags_tpu/splat/pallas_kernel.py:1969",
-            ms=cuda_ms(lambda: kernels.blend_backward(*a2), 20), plain_ms=k2_plain,
+            ms=device_ms(k2_fn), events_ms=cuda_ms(k2_fn, 20), plain_ms=k2_plain,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
             library_ms=None, pairs_walked=walked2, pairs_blended=blended2,
-            max_abs_err=cmp2["max_abs_err"], mean_abs_err=cmp2["mean_abs_err"]))
+            max_abs_err=cmp2["max_abs_err"], mean_abs_err=cmp2["mean_abs_err"],
+            bit_identical=True, timing=DEVICE_TIMING, instances_per_tile=tile_stats(b.tile_counts)))
         del grad_p
 
         # K3, on K2's rows
@@ -1054,6 +1080,34 @@ def write_rgb_fixture(root: str, dev: torch.device) -> None:
     write_points3d_ply(os.path.join(sparse, "points3D.ply"), xyz, rgb)
 
 
+def k8_columns(got, want_col, want_geo, label: str, extra=()) -> dict:
+    """K8's outputs against its plain version's at the CPU test's
+    tolerance, column by column (the conic columns are thousands of times
+    larger than mx, my and opacity): at most 0.1% of values outside 1e-5
+    max|g| + 1e-4 rel (isolated threshold flips), mean error at most 1e-5
+    max|g| and 1e-3 mean|g|. `extra`: more (name, got, want) columns."""
+    if bool(got[1][:, 6:].any()):
+        fail("K8 blend_backward_full writes geometry rows 6-7")
+    out = {}
+    for what, g, wnt in ([(f"colour {j}", got[0][:, j], want_col[:, j])
+                          for j in range(want_col.shape[1])]
+                         + [(name, got[1][:, j], want_geo[:, j]) for j, name in
+                            enumerate(("mx", "my", "ca", "cb", "cc", "opacity"))]
+                         + list(extra)):
+        scale = float(wnt.abs().max())
+        err = (g - wnt).abs()
+        c = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+             "frac_outside": float((err > 1e-5 * scale + 1e-4 * wnt.abs()).float().mean()),
+             "max_abs_grad": scale, "mean_abs_grad": float(wnt.abs().mean())}
+        print(f"# K8 blend_backward_full {label}{what}: {c}", flush=True)
+        if (not torch.isfinite(g).all() or scale == 0 or c["frac_outside"] > 1e-3
+                or c["mean_abs_err"] > 1e-5 * scale
+                or c["mean_abs_err"] > 1e-3 * c["mean_abs_grad"]):
+            fail(f"K8 blend_backward_full {label}{what} disagrees with its plain version: {c}")
+        out[label + what] = c
+    return out
+
+
 def rgb_phase(dev: torch.device, gpu: str) -> dict:
     """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
     the step's times and profile, K8 against its plain version on the
@@ -1179,7 +1233,12 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
         a8 = (geom_p, cols_p, b.inst_gid, b.tile_starts, b.tile_counts, g_img, g_alpha,
               tx, ty, th, tw)
         got = kernels.blend_backward_full(*a8)
+        again = kernels.blend_backward_full(*a8)
         torch.cuda.synchronize()
+        for part, other, what in zip(got, again, ("colour", "geometry")):
+            if not torch.equal(part, other):  # one writer per row, a fixed order of addition
+                fail(f"K8 {what}: two launches differ at {int((part != other).sum())} values")
+        del again
         t0 = time.perf_counter()
         want_col, want_geo, walked, blended = kernels.blend_backward_full_plain(
             *a8, return_pairs=True)
@@ -1193,30 +1252,18 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
             0, b.inst_gid.long(), want_geo[:, :2].double())
         want_tap = torch.zeros((n_g, 2), dtype=torch.float64, device=dev).index_copy_(
             0, b.order.long(), rank_sum[:n_g]) * g_max.double()
-        if bool(got[1][:, 6:].any()):
-            fail("K8 blend_backward_full writes geometry rows 6-7")
-        cmp8 = {}
-        for what, g, wnt in ([(f"colour {j}", got[0][:, j], want_col[:, j]) for j in range(3)]
-                             + [(name, got[1][:, j], want_geo[:, j]) for j, name in
-                                enumerate(("mx", "my", "ca", "cb", "cc", "opacity"))]
-                             + [(f"tap {name}", tap.grad[:, j].double(), want_tap[:, j])
-                                for j, name in enumerate(("x", "y"))]):
-            # the CPU test's tolerance, column by column (the conic columns
-            # are thousands of times larger than mx, my and opacity): at
-            # most 0.1% of values outside 1e-5 max|g| + 1e-4 rel (isolated
-            # threshold flips, atomics in no fixed order), mean error at
-            # most 1e-5 max|g| and 1e-3 mean|g|
-            scale = float(wnt.abs().max())
-            err = (g - wnt).abs()
-            c = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
-                 "frac_outside": float((err > 1e-5 * scale + 1e-4 * wnt.abs()).float().mean()),
-                 "max_abs_grad": scale, "mean_abs_grad": float(wnt.abs().mean())}
-            print(f"# K8 blend_backward_full {what}: {c}", flush=True)
-            if (not torch.isfinite(g).all() or scale == 0 or c["frac_outside"] > 1e-3
-                    or c["mean_abs_err"] > 1e-5 * scale
-                    or c["mean_abs_err"] > 1e-3 * c["mean_abs_grad"]):
-                fail(f"K8 blend_backward_full {what} disagrees with its plain version: {c}")
-            cmp8[what] = c
+        cmp8 = k8_columns(got, want_col, want_geo, "", [
+            (f"tap {name}", tap.grad[:, j].double(), want_tap[:, j])
+            for j, name in enumerate(("x", "y"))])
+        # once more with a seeded, non-zero alpha cotangent, which the loss
+        # does not give: walk B's g_alpha T_fin term
+        g_alpha_r = torch.as_tensor(np.random.default_rng(8).standard_normal(
+            tuple(g_alpha.shape), dtype=np.float32), device=dev)
+        a8r = a8[:6] + (g_alpha_r,) + a8[7:]
+        got_r = kernels.blend_backward_full(*a8r)
+        want_r = kernels.blend_backward_full_plain(*a8r)
+        cmp8.update(k8_columns(got_r, *want_r, "g_alpha ~ N(0, 1): "))
+        del got_r, want_r, g_alpha_r
         nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
                   + g_img.numel() + g_alpha.numel() + got[0].numel() + got[1].numel()) * 4
         # per walked pair and walk: the blend_common arithmetic (16); per
@@ -1231,11 +1278,14 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
             launches_per_step=launches["blend_backward_full"] / RGB_STEPS,
             check="ok", max_abs_err=max(c["max_abs_err"] for k, c in cmp8.items()
                                          if not k.startswith("tap")),
-            ms=cuda_ms(lambda: kernels.blend_backward_full(*a8), 10), plain_ms=plain_ms,
+            ms=device_ms(lambda: kernels.blend_backward_full(*a8)),
+            events_ms=cuda_ms(lambda: kernels.blend_backward_full(*a8), 10), plain_ms=plain_ms,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
             library_ms=None, pairs_walked=walked, pairs_blended=blended,
             instances=int(b.num_valid), slots=b.inst_gid.numel(), budget_factor=factor,
-            check_resolution=f"{w}x{h}", by_output=cmp8, rgb_steps=steps,
+            check_resolution=f"{w}x{h}", by_output=cmp8, bit_identical=True,
+            instances_per_tile=tile_stats(b.tile_counts),
+            timing=DEVICE_TIMING, rgb_steps=steps,
             rgb_launches={k: v for k, v in launches.items() if v})
         with_bound(k8)
         print(f"# K8 blend_backward_full: ms {k8['ms']:.4f}, plain {plain_ms:.1f} ms, bound "
@@ -1372,8 +1422,9 @@ def main() -> int:
         nbytes = (geom_p.numel() + cols_p.numel() + binned.inst_gid.numel()
                   + 2 * binned.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
         ops = 16 * walked + (4 + 2 * c) * blended
+        k5_fn = lambda: kernels.blend_forward(*args)  # noqa: E731
         k5[label] = dict(
-            channels=c, ms=cuda_ms(lambda: kernels.blend_forward(*args), 20),
+            channels=c, ms=device_ms(k5_fn), events_ms=cuda_ms(k5_fn, 20),
             plain_ms=plain_ms, pairs_walked=walked, pairs_blended=blended,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
             **cmp,
@@ -1525,14 +1576,14 @@ def main() -> int:
             "replaces": "gags_tpu/splat/pallas_kernel.py:719",
             "launches": launches["blend_forward"], "check": "ok",
             "max_abs_err": max(v["max_abs_err"] for v in k5.values()),
-            "ms": f16["ms"], "plain_ms": f16["plain_ms"],
+            "ms": f16["ms"], "events_ms": f16["events_ms"], "plain_ms": f16["plain_ms"],
             "bound_ms": max(f16["bytes_ms"], f16["ops_ms"]),
             "bound_by": "bytes" if f16["bytes_ms"] >= f16["ops_ms"] else "operations",
-            "library_ms": None,
+            "library_ms": None, "timing": DEVICE_TIMING,
             "by_option": options["k5"],
             "by_channels": {
                 str(v["channels"]): {
-                    "ms": v["ms"], "plain_ms": v["plain_ms"],
+                    "ms": v["ms"], "events_ms": v["events_ms"], "plain_ms": v["plain_ms"],
                     "bound_ms": max(v["bytes_ms"], v["ops_ms"]),
                     "pairs_walked": v["pairs_walked"], "pairs_blended": v["pairs_blended"],
                     "max_abs_err": v["max_abs_err"], "mean_abs_err": v["mean_abs_err"],

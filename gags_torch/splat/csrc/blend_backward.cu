@@ -17,135 +17,176 @@
 // non-zero weight adds C products that must be summed over the tile's
 // pixels into the instance's row.
 //
-// Design (simple first): the forward's layout, one thread per pixel in
-// bands of at most 256 threads (four blocks per 32x32 tile), each pixel's
-// cotangent row held in registers (C is a template parameter). Batches of
-// blockDim instances are staged in shared memory; every warp walks a batch
-// in lock step (a pixel that has stopped contributes w = 0). A warp whose
-// lanes all have w = 0 for an instance skips it; otherwise the C products
-// are summed across the warp with __shfl_down_sync and lane 0 adds them to
-// the batch's (batch, C) accumulator in shared memory. After the batch,
-// each non-zero accumulator is added to its row with one float atomicAdd:
-// the bands of a tile share rows, so the order of those additions (and of
-// the warps' shared-memory additions) varies from run to run at the
-// float-rounding level. A warp leaves the batch once none of its pixels is
-// alive, and the block stops once none of its pixels is.
+// Design: K8's walk B without the geometry, in tile_reduce.cuh's layout.
+// A tile is a thread-block cluster of bands of 256 threads; each thread
+// owns two pixels with their cotangent rows in registers (C is a template
+// parameter) and each warp a compact 8x8 block, so that for most
+// instances no lane of a warp blends. Batches of instance geometry rows
+// are gathered with cp.async, batch b + 1 while batch b is walked; every
+// warp walks a batch in lock step (a pixel that has stopped contributes
+// w = 0), testing each pair first for the exact far-pair case
+// (blend_common.cuh's surely_floored: no exp). A warp in which no pixel
+// blends an instance writes zeros; otherwise each thread adds its two
+// pixels' products in registers and the warp reduces the C sums by a
+// transpose-reduce (C = 16: 16 shuffles where a shuffle tree per channel
+// took 80), each landing in its own lane, into its row of the band's
+// partials. After a cluster barrier the tile sums every (instance,
+// channel) over its warps in a fixed order and stores it: one writer per
+// output row, no atomics, bit-identical across launches. The cluster
+// stops once none of its pixels is alive; the tiles start in order of
+// decreasing instance count.
 
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
+#include "tile_reduce.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
-
+// shared memory of a band: the double-buffered geometry rows, the
+// partials and the band's live flag
 template <int C>
-__global__ void __launch_bounds__(kMaxThreads)
+size_t smem_bytes(int warps) {
+  constexpr int kBatch = gags::batch_for(C);
+  return (static_cast<size_t>(2 * kBatch) * 8 + static_cast<size_t>(kBatch) * warps * C) *
+             sizeof(float) + 16;
+}
+
+template <int C, int PPT>
+__global__ void __launch_bounds__(gags::kBandThreads)
 blend_backward_kernel(const float* __restrict__ geom,
                       const int* __restrict__ inst_gid,
                       const int* __restrict__ tile_starts,
                       const int* __restrict__ tile_counts,
+                      const int* __restrict__ tile_order,
                       const float* __restrict__ gout,
                       float* __restrict__ grad, int tiles_x, int tile_h,
-                      int tile_w) {
-  extern __shared__ float smem[];
-  const int batch = blockDim.x;
-  float* s_mx = smem;
-  float* s_my = s_mx + batch;
-  float* s_ca = s_my + batch;
-  float* s_cb = s_ca + batch;
-  float* s_cc = s_cb + batch;
-  float* s_op = s_cc + batch;
-  float* s_acc = s_op + batch;  // (batch, C)
-
-  const int tile = blockIdx.x;
-  const int npix = tile_h * tile_w;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool in_tile = p < npix;
+                      int tile_w, int bands) {
+  constexpr int kBatch = gags::batch_for(C);
+  gags::cg::cluster_group cluster = gags::cg::this_cluster();
+  const int band = static_cast<int>(cluster.block_rank());
+  const int tile = tile_order[blockIdx.x / bands];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float px, py;
-  gags::pixel_centre(tile, p, tiles_x, tile_h, tile_w, &px, &py);
+
+  extern __shared__ float4 smem4[];
+  float* s_geo = reinterpret_cast<float*>(smem4);  // [2][kBatch][8]
+  float* s_part = s_geo + 2 * kBatch * 8;           // [kBatch][warps][C]
+  int* s_live = reinterpret_cast<int*>(s_part + kBatch * warps * C);
+
+  const int npix = tile_h * tile_w;
   const int start = tile_starts[tile];
   const int count = tile_counts[tile];
+  const int batches = (count + kBatch - 1) / kBatch;
 
-  float gp[C];
-  const float* grow = gout + (static_cast<size_t>(tile) * npix + p) * C;
+  float px[PPT], py[PPT], gp[PPT][C], T[PPT];
+  bool alive[PPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c) gp[c] = in_tile ? grow[c] : 0.0f;
-  float T = 1.0f;
-  bool alive = in_tile;
+  for (int i = 0; i < PPT; ++i) {
+    const int p = gags::tile_pixel<PPT>(band * warps + warp, i, lane, tile_w, tile_h);
+    alive[i] = p < npix;
+    gags::pixel_centre(tile, p, tiles_x, tile_h, tile_w, &px[i], &py[i]);
+    const float* grow = gout + (static_cast<size_t>(tile) * npix + p) * C;
+#pragma unroll
+    for (int c = 0; c < C; ++c) gp[i][c] = alive[i] ? grow[c] : 0.0f;
+    T[i] = 1.0f;
+  }
 
-  for (int b0 = 0; b0 < count; b0 += batch) {
-    if (__syncthreads_count(alive) == 0) break;
-    const int j = b0 + threadIdx.x;
-    if (j < count) {
-      const float* gr = geom + static_cast<size_t>(inst_gid[start + j]) * 8;
-      s_mx[threadIdx.x] = gr[0];
-      s_my[threadIdx.x] = gr[1];
-      s_ca[threadIdx.x] = gr[2];
-      s_cb[threadIdx.x] = gr[3];
-      s_cc[threadIdx.x] = gr[4];
-      s_op[threadIdx.x] = gr[5];
+  if (batches > 0)
+    gags::stage_rows<0>(geom, nullptr, inst_gid, start, min(kBatch, count), s_geo, nullptr);
+  for (int b = 0; b < batches; ++b) {
+    gags::cp_async_wait_all();
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) any |= alive[i];
+    // does any pixel of the band still blend? (also: batch b has landed)
+    const int live = __syncthreads_or(any);
+    if (threadIdx.x == 0) s_live[b & 1] = live;
+    // every band's flag is written, and every band is done reading the
+    // partials of b - 1
+    cluster.sync();
+    bool any_live = false;
+    for (int r = 0; r < bands; ++r) any_live |= *cluster.map_shared_rank(s_live + (b & 1), r) != 0;
+    if (!any_live) break;  // uniform across the cluster
+    if (b + 1 < batches) {
+      const int nxt = (b + 1) * kBatch;
+      gags::stage_rows<0>(geom, nullptr, inst_gid, start + nxt, min(kBatch, count - nxt),
+                          s_geo + ((b + 1) & 1) * kBatch * 8, nullptr);
     }
+    const float* sg = s_geo + (b & 1) * kBatch * 8;
+    const int nb = min(kBatch, count - b * kBatch);
+    int k = 0;
+    for (; k < nb && __any_sync(gags::kWarpMask, any); ++k) {
+      const float4 g0 = reinterpret_cast<const float4*>(sg)[2 * k];
+      const float2 g1 = reinterpret_cast<const float2*>(sg)[4 * k + 2];
+      float w[PPT];
+      bool blended = false;
+      any = false;
 #pragma unroll
-    for (int c = 0; c < C; ++c) s_acc[threadIdx.x * C + c] = 0.0f;
-    __syncthreads();
-    const int nb = min(batch, count - b0);
-    for (int k = 0; k < nb; ++k) {
-      if (!__any_sync(kFullMask, alive)) break;  // uniform across the warp
-      float w = 0.0f;
-      if (alive) {
-        const float alpha = gags::splat_alpha(px, py, s_mx[k], s_my[k],
-                                              s_ca[k], s_cb[k], s_cc[k],
-                                              s_op[k]);
+      for (int i = 0; i < PPT; ++i) {
+        w[i] = 0.0f;
+        if (!alive[i]) continue;
+        float dx, dy, vis;
+        const float sigma =
+            gags::splat_sigma(px[i], py[i], g0.x, g0.y, g0.z, g0.w, g1.x, &dx, &dy);
+        const float alpha =
+            gags::surely_floored(sigma, g1.y) ? 0.0f : gags::alpha_of_sigma(sigma, g1.y, &vis);
         if (alpha != 0.0f) {
-          const float next_t = gags::next_transmittance(T, alpha);
+          const float next_t = gags::next_transmittance(T[i], alpha);
           if (next_t < gags::kTEps) {
-            alive = false;
+            alive[i] = false;
           } else {
-            w = gags::blend_weight(T, alpha);
-            T = next_t;
+            w[i] = gags::blend_weight(T[i], alpha);
+            blended = true;
+            T[i] = next_t;
           }
         }
+        any |= alive[i];
       }
-      if (!__any_sync(kFullMask, w != 0.0f)) continue;
+      float* row = s_part + (k * warps + warp) * C;
+      if (__any_sync(gags::kWarpMask, blended)) {
+        float v[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float v = w * gp[c];
+        for (int c = 0; c < C; ++c) {
+          v[c] = w[0] * gp[0][c];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_down_sync(kFullMask, v, off);
-        if (lane == 0) atomicAdd(&s_acc[k * C + c], v);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < nb) {
-      float* row = grad + static_cast<size_t>(start + b0 + threadIdx.x) * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float v = s_acc[threadIdx.x * C + c];
-        if (v != 0.0f) atomicAdd(&row[c], v);
+          for (int i = 1; i < PPT; ++i) v[c] += w[i] * gp[i][c];
+        }
+        gags::warp_sum_store<C>(v, lane, row);
+      } else if (lane < C) {
+        row[lane] = 0.0f;
       }
     }
+    for (; k < nb; ++k)  // the warp's pixels have all stopped
+      if (lane < C) s_part[(k * warps + warp) * C + lane] = 0.0f;
+    // every band's partials of batch b are written
+    cluster.sync();
+    float* out = grad + static_cast<size_t>(start + b * kBatch) * C;
+    gags::cluster_sums<C>(s_part, nb, bands, band,
+                          [&](int kk, int c, float s) { out[static_cast<size_t>(kk) * C + c] = s; });
   }
+  gags::cp_async_wait_all();
+  // no band leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-template <int C>
+template <int C, int PPT>
 int launch(const float* geom, const int* inst_gid, const int* tile_starts,
-           const int* tile_counts, const float* gout, float* grad,
-           int num_tiles, int tiles_x, int tile_h, int tile_w,
-           cudaStream_t stream) {
-  const int npix = tile_h * tile_w;
-  int threads = npix < kMaxThreads ? npix : kMaxThreads;
-  threads = (threads + 31) / 32 * 32;
-  const dim3 grid(num_tiles, (npix + threads - 1) / threads);
-  const size_t smem = static_cast<size_t>(threads) * (6 + C) * sizeof(float);
-  blend_backward_kernel<C><<<grid, threads, smem, stream>>>(
-      geom, inst_gid, tile_starts, tile_counts, gout, grad, tiles_x, tile_h,
-      tile_w);
-  return static_cast<int>(cudaGetLastError());
+           const int* tile_counts, const int* tile_order, const float* gout, float* grad,
+           int num_tiles, int tiles_x, int tile_h, int tile_w, cudaStream_t stream) {
+  gags::BandLayout L;
+  if (!gags::band_layout(tile_h * tile_w, PPT, &L))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return gags::launch_tiles(blend_backward_kernel<C, PPT>, num_tiles, L,
+                            smem_bytes<C>(L.threads / 32), stream, geom, inst_gid, tile_starts,
+                            tile_counts, tile_order, gout, grad, tiles_x, tile_h, tile_w, L.bands);
 }
+
+// two pixels a thread: half the per-instance overhead and warp
+// reductions of one (at GAD's 240 tiles of 32x32, though they hold half
+// the warps)
+constexpr int kPixelsPerThread = 2;
 
 }  // namespace
 
@@ -161,12 +202,15 @@ int gags_blend_backward_channels(int i) {
   return i < 8 ? kChannels[i] : 0;
 }
 
-// geom (R, 8) f32, inst_gid (M,) i32, tile_starts and tile_counts
-// (num_tiles,) i32, gout (num_tiles, P, C) f32, grad (M, C) f32 ZEROED.
-// Launches on `stream` and returns cudaGetLastError() of the launch.
+// geom (R, 8) f32 (16-byte aligned), inst_gid (M,) i32, tile_starts and
+// tile_counts (num_tiles,) i32, tile_order (num_tiles,) i32 a permutation
+// of the tiles (the order to start them in; the wrapper passes decreasing
+// counts), gout (num_tiles, P, C) f32, grad (M, C)
+// f32 ZEROED (the kernel writes only the rows of the instances it walks).
+// Launches on `stream` and returns the launch's CUDA error code.
 int gags_blend_backward(const void* geom, const void* inst_gid,
                         const void* tile_starts, const void* tile_counts,
-                        const void* gout, void* grad, int num_tiles,
+                        const void* tile_order, const void* gout, void* grad, int num_tiles,
                         int tiles_x, int tile_h, int tile_w, int channels,
                         void* stream) {
   if (num_tiles <= 0) return 0;
@@ -174,13 +218,14 @@ int gags_blend_backward(const void* geom, const void* inst_gid,
   auto id = static_cast<const int*>(inst_gid);
   auto ts = static_cast<const int*>(tile_starts);
   auto tc = static_cast<const int*>(tile_counts);
+  auto to = static_cast<const int*>(tile_order);
   auto go = static_cast<const float*>(gout);
   auto gr = static_cast<float*>(grad);
   auto s = static_cast<cudaStream_t>(stream);
 #define GAGS_CASE(CH)                                                       \
   case CH:                                                                  \
-    return launch<CH>(g, id, ts, tc, go, gr, num_tiles, tiles_x, tile_h,   \
-                      tile_w, s);
+    return launch<CH, kPixelsPerThread>(g, id, ts, tc, to, go, gr, num_tiles, \
+                                        tiles_x, tile_h, tile_w, s);
   switch (channels) {
     GAGS_CASE(1)
     GAGS_CASE(2)

@@ -38,30 +38,38 @@
 // walk, ~30 ops of the chain rule and C + 6 values summed over the tile's
 // pixels into the instance's row.
 //
-// Design (simple first), K2's layout: one thread per pixel in bands of at
-// most 256 threads (four blocks per 32x32 tile), the pixel's cotangent
-// row held in registers (C is a template parameter). Batches of instances
-// (their geometry and colour rows) are staged in shared memory. In walk A
-// every thread walks on its own and stops at its pixel's end. In walk B
-// the warps walk a batch in lock step (a pixel that has stopped
-// contributes zeros); a warp whose lanes all have w = 0 for an instance
-// skips it; otherwise each of the C + 6 values is summed across the warp
-// with __shfl_down_sync and lane 0 adds it to the batch's shared
-// accumulator. After the batch each non-zero accumulator is added to its
-// row with one float atomicAdd (the bands of a tile share rows), so the
-// order of those additions varies from run to run at the rounding level.
+// Design (tile_reduce.cuh's layout): a tile is a thread-block cluster of
+// bands of 256 threads; each thread owns PPT pixels (2 at C <= 4, the RGB
+// trainer's C = 3; else 1) with their cotangent rows in registers (C is a
+// template parameter), each warp a compact block of 32 PPT pixels.
+// Batches of instances (geometry and colour rows) are gathered with
+// cp.async, batch b + 1 while batch b is walked; each pair is tested
+// first for the exact far-pair case (blend_common.cuh's surely_floored:
+// no exp). In walk A every thread walks on its own and stops at its
+// pixels' end; a band stops once none of its pixels is alive. In walk B
+// the cluster walks as many batches as its longest band did in walk A,
+// each warp in lock step (a pixel that has stopped contributes zeros).
+// Per instance a thread first sums its own pixels' C + 6 values in
+// registers; a warp in which no pixel blends the instance writes zeros;
+// otherwise the warp reduces the C colour values and the 6 geometry
+// values each by a transpose-reduce (C = 3: 3 + 9 shuffles where a
+// shuffle tree per value took 45) into its row of the band's partials.
+// After a cluster barrier the tile sums every (instance, value) over its
+// warps in a fixed order and stores it: one writer per output row, no
+// atomics, bit-identical across launches. Rows outside every range and
+// behind every pixel's stop keep the zeros the wrapper allocates. The
+// tiles start in order of decreasing instance count.
 
 #include <cuda_runtime.h>
 
 #include "blend_common.cuh"
+#include "tile_reduce.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
 constexpr int kGeomGrads = 6;  // mx, my, ca, cb, cc, opac
 constexpr int kGeomRow = 8;    // output row: the 6 gradients, then 2 zeros
-constexpr size_t kSmemLimit = 48 * 1024;  // no opt-in above the default
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxPairedChannels = 4;  // the widest C compiled at two pixels a thread
 
 // u = g . colour, channel by channel with round-to-nearest operations, so
 // the two walks compute it bit for bit alike
@@ -73,188 +81,259 @@ __device__ __forceinline__ float dot_rn(const float* g, const float* col) {
   return u;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(kFullMask, v, off);
-  return v;
+// shared memory of a band: the double-buffered rows, the partials and
+// the band's walk-A batch count
+template <int C>
+size_t smem_bytes(int warps) {
+  constexpr int kBatch = gags::batch_for(C + kGeomGrads);
+  return (static_cast<size_t>(2 * kBatch) * (8 + C) +
+          static_cast<size_t>(kBatch) * warps * (C + kGeomGrads)) * sizeof(float) + 16;
 }
 
-template <int C>
-__device__ __forceinline__ void stage(const float* __restrict__ geom,
-                                      const float* __restrict__ colors,
-                                      const int* __restrict__ inst_gid,
-                                      int first, int nb, float* s_geo,
-                                      float* s_col, int batch) {
-  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-    const int r = inst_gid[first + k];
-    const float* gr = geom + static_cast<size_t>(r) * 8;
-#pragma unroll
-    for (int i = 0; i < kGeomGrads; ++i) s_geo[i * batch + k] = gr[i];
-    const float* cr = colors + static_cast<size_t>(r) * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) s_col[k * C + c] = cr[c];
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int C, int PPT>
+__global__ void __launch_bounds__(gags::kBandThreads)
 blend_backward_full_kernel(const float* __restrict__ geom,
                            const float* __restrict__ colors,
                            const int* __restrict__ inst_gid,
                            const int* __restrict__ tile_starts,
                            const int* __restrict__ tile_counts,
+                           const int* __restrict__ tile_order,
                            const float* __restrict__ gout,
                            const float* __restrict__ galpha,
                            float* __restrict__ grad_col,
                            float* __restrict__ grad_geom, int tiles_x,
-                           int tile_h, int tile_w, int batch) {
-  constexpr int kAcc = C + kGeomGrads;  // accumulated values per instance
-  extern __shared__ float smem[];
-  float* s_geo = smem;                         // (6, batch): mx my ca cb cc op
-  float* s_col = s_geo + kGeomGrads * batch;   // (batch, C)
-  float* s_acc = s_col + batch * C;            // (batch, C + 6)
-  const float* s_mx = s_geo;
-  const float* s_my = s_geo + batch;
-  const float* s_ca = s_geo + 2 * batch;
-  const float* s_cb = s_geo + 3 * batch;
-  const float* s_cc = s_geo + 4 * batch;
-  const float* s_op = s_geo + 5 * batch;
-
-  const int tile = blockIdx.x;
-  const int npix = tile_h * tile_w;
-  const int p = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool in_tile = p < npix;
+                           int tile_h, int tile_w, int bands) {
+  constexpr int V = C + kGeomGrads;  // summed values per instance
+  constexpr int kBatch = gags::batch_for(V);
+  gags::cg::cluster_group cluster = gags::cg::this_cluster();
+  const int band = static_cast<int>(cluster.block_rank());
+  const int tile = tile_order[blockIdx.x / bands];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float px, py;
-  gags::pixel_centre(tile, p, tiles_x, tile_h, tile_w, &px, &py);
+
+  extern __shared__ float4 smem4[];
+  float* s_geo = reinterpret_cast<float*>(smem4);  // [2][kBatch][8]
+  float* s_col = s_geo + 2 * kBatch * 8;            // [2][kBatch][C]
+  float* s_part = s_col + 2 * kBatch * C;           // [kBatch][warps][V]
+  int* s_batches = reinterpret_cast<int*>(s_part + kBatch * warps * V);
+
+  const int npix = tile_h * tile_w;
   const int start = tile_starts[tile];
   const int count = tile_counts[tile];
+  const int batches = (count + kBatch - 1) / kBatch;
 
-  float gp[C];
-  const size_t pix = static_cast<size_t>(tile) * npix + p;
+  float px[PPT], py[PPT], gp[PPT][C], ga[PPT];
+  bool in_tile[PPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c) gp[c] = in_tile ? gout[pix * C + c] : 0.0f;
-  const float ga = in_tile ? galpha[pix] : 0.0f;
-
-  // ---- walk A: Total and T_fin of this pixel ----------------------------
-  float T = 1.0f;
-  float total = 0.0f;
-  bool alive = in_tile;
-  for (int b0 = 0; b0 < count; b0 += batch) {
-    if (__syncthreads_count(alive) == 0) break;
-    const int nb = min(batch, count - b0);
-    stage<C>(geom, colors, inst_gid, start + b0, nb, s_geo, s_col, batch);
-    __syncthreads();
-    for (int k = 0; alive && k < nb; ++k) {
-      const float alpha = gags::splat_alpha(px, py, s_mx[k], s_my[k], s_ca[k],
-                                            s_cb[k], s_cc[k], s_op[k]);
-      if (alpha == 0.0f) continue;
-      const float next_t = gags::next_transmittance(T, alpha);
-      if (next_t < gags::kTEps) {
-        alive = false;
-      } else {
-        const float w = gags::blend_weight(T, alpha);
-        total = __fadd_rn(total, __fmul_rn(dot_rn<C>(gp, &s_col[k * C]), w));
-        T = next_t;
-      }
-    }
+  for (int i = 0; i < PPT; ++i) {
+    const int p = gags::tile_pixel<PPT>(band * warps + warp, i, lane, tile_w, tile_h);
+    in_tile[i] = p < npix;
+    gags::pixel_centre(tile, p, tiles_x, tile_h, tile_w, &px[i], &py[i]);
+    const size_t pix = static_cast<size_t>(tile) * npix + p;
+#pragma unroll
+    for (int c = 0; c < C; ++c) gp[i][c] = in_tile[i] ? gout[pix * C + c] : 0.0f;
+    ga[i] = in_tile[i] ? galpha[pix] : 0.0f;
   }
-  const float t_fin = T;
-  const float ga_tfin = ga * t_fin;
 
-  // ---- walk B: the gradients ---------------------------------------------
-  T = 1.0f;
-  float prefix = 0.0f;
-  alive = in_tile;
-  for (int b0 = 0; b0 < count; b0 += batch) {
-    if (__syncthreads_count(alive) == 0) break;
-    const int nb = min(batch, count - b0);
-    stage<C>(geom, colors, inst_gid, start + b0, nb, s_geo, s_col, batch);
-    for (int i = threadIdx.x; i < batch * kAcc; i += blockDim.x) s_acc[i] = 0.0f;
-    __syncthreads();
-    for (int k = 0; k < nb; ++k) {
-      if (!__any_sync(kFullMask, alive)) break;  // uniform across the warp
-      float w = 0.0f, dl_ds = 0.0f, dl_dop = 0.0f, dx = 0.0f, dy = 0.0f;
-      if (alive) {
-        float vis = 0.0f;
-        const float alpha = gags::splat_alpha_parts(
-            px, py, s_mx[k], s_my[k], s_ca[k], s_cb[k], s_cc[k], s_op[k], &dx,
-            &dy, &vis);
+  // ---- walk A: Total and T_fin of each pixel ----------------------------
+  float T[PPT], total[PPT];
+  bool alive[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    T[i] = 1.0f;
+    total[i] = 0.0f;
+    alive[i] = in_tile[i];
+  }
+  int walked = batches;  // batches this band needs
+  if (batches > 0)
+    gags::stage_rows<C>(geom, colors, inst_gid, start, min(kBatch, count), s_geo, s_col);
+  for (int b = 0; b < batches; ++b) {
+    gags::cp_async_wait_all();
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) any |= alive[i];
+    // batch b has landed, and every thread is done with the other buffer
+    if (!__syncthreads_or(any)) {
+      walked = b;
+      break;
+    }
+    if (b + 1 < batches) {
+      const int nxt = (b + 1) * kBatch;
+      gags::stage_rows<C>(geom, colors, inst_gid, start + nxt, min(kBatch, count - nxt),
+                          s_geo + ((b + 1) & 1) * kBatch * 8, s_col + ((b + 1) & 1) * kBatch * C);
+    }
+    const float* sg = s_geo + (b & 1) * kBatch * 8;
+    const float* sc = s_col + (b & 1) * kBatch * C;
+    const int nb = min(kBatch, count - b * kBatch);
+    for (int k = 0; any && k < nb; ++k) {
+      const float4 g0 = reinterpret_cast<const float4*>(sg)[2 * k];
+      const float2 g1 = reinterpret_cast<const float2*>(sg)[4 * k + 2];
+      any = false;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        if (!alive[i]) continue;
+        float dx, dy, vis;
+        const float sigma =
+            gags::splat_sigma(px[i], py[i], g0.x, g0.y, g0.z, g0.w, g1.x, &dx, &dy);
+        const float alpha =
+            gags::surely_floored(sigma, g1.y) ? 0.0f : gags::alpha_of_sigma(sigma, g1.y, &vis);
         if (alpha != 0.0f) {
-          const float next_t = gags::next_transmittance(T, alpha);
+          const float next_t = gags::next_transmittance(T[i], alpha);
           if (next_t < gags::kTEps) {
-            alive = false;
+            alive[i] = false;
           } else {
-            w = gags::blend_weight(T, alpha);
-            const float u = dot_rn<C>(gp, &s_col[k * C]);
-            prefix = __fadd_rn(prefix, __fmul_rn(u, w));
-            const float inv = 1.0f / (1.0f - alpha);
-            const float dl_da = u * T - (total - prefix) * inv + ga_tfin * inv;
-            if (alpha < gags::kAlphaClamp) {
-              dl_ds = -alpha * dl_da;
-              dl_dop = dl_da * vis;
-            }
-            T = next_t;
+            const float w = gags::blend_weight(T[i], alpha);
+            total[i] = __fadd_rn(total[i], __fmul_rn(dot_rn<C>(gp[i], &sc[k * C]), w));
+            T[i] = next_t;
           }
         }
+        any |= alive[i];
       }
-      if (!__any_sync(kFullMask, w != 0.0f)) continue;
-      float* acc = &s_acc[k * kAcc];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float v = warp_sum(w * gp[c]);
-        if (lane == 0) atomicAdd(&acc[c], v);
-      }
-      const float ca = s_ca[k], cb = s_cb[k], cc = s_cc[k];
-      const float gv[kGeomGrads] = {
-          dl_ds * -(ca * dx + cb * dy), dl_ds * -(cc * dy + cb * dx),
-          dl_ds * (0.5f * dx * dx),     dl_ds * (dx * dy),
-          dl_ds * (0.5f * dy * dy),     dl_dop};
-#pragma unroll
-      for (int i = 0; i < kGeomGrads; ++i) {
-        const float v = warp_sum(gv[i]);
-        if (lane == 0) atomicAdd(&acc[C + i], v);
-      }
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < nb; k += blockDim.x) {
-      const size_t j = static_cast<size_t>(start + b0 + k);
-      const float* acc = &s_acc[k * kAcc];
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (acc[c] != 0.0f) atomicAdd(&grad_col[j * C + c], acc[c]);
-#pragma unroll
-      for (int i = 0; i < kGeomGrads; ++i)
-        if (acc[C + i] != 0.0f) atomicAdd(&grad_geom[j * kGeomRow + i], acc[C + i]);
     }
   }
+  gags::cp_async_wait_all();
+  float ga_tfin[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) ga_tfin[i] = ga[i] * T[i];
+
+  // the cluster walks as many batches as its longest band
+  if (threadIdx.x == 0) *s_batches = walked;
+  cluster.sync();
+  int nbatch = 0;
+  for (int r = 0; r < bands; ++r) nbatch = max(nbatch, *cluster.map_shared_rank(s_batches, r));
+
+  // ---- walk B: the gradients ---------------------------------------------
+  float prefix[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    T[i] = 1.0f;
+    prefix[i] = 0.0f;
+    alive[i] = in_tile[i];
+  }
+  if (nbatch > 0)
+    gags::stage_rows<C>(geom, colors, inst_gid, start, min(kBatch, count), s_geo, s_col);
+  for (int b = 0; b < nbatch; ++b) {
+    gags::cp_async_wait_all();
+    // batch b has landed; every band is done reading the partials of b - 1
+    cluster.sync();
+    if (b + 1 < nbatch) {
+      const int nxt = (b + 1) * kBatch;
+      gags::stage_rows<C>(geom, colors, inst_gid, start + nxt, min(kBatch, count - nxt),
+                          s_geo + ((b + 1) & 1) * kBatch * 8, s_col + ((b + 1) & 1) * kBatch * C);
+    }
+    const float* sg = s_geo + (b & 1) * kBatch * 8;
+    const float* sc = s_col + (b & 1) * kBatch * C;
+    const int nb = min(kBatch, count - b * kBatch);
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) any |= alive[i];
+    int k = 0;
+    for (; k < nb && __any_sync(gags::kWarpMask, any); ++k) {
+      const float4 g0 = reinterpret_cast<const float4*>(sg)[2 * k];
+      const float2 g1 = reinterpret_cast<const float2*>(sg)[4 * k + 2];
+      const float ca = g0.z, cb = g0.w, cc = g1.x;
+      float col[C], geo[kGeomGrads];
+#pragma unroll
+      for (int c = 0; c < C; ++c) col[c] = 0.0f;
+#pragma unroll
+      for (int g = 0; g < kGeomGrads; ++g) geo[g] = 0.0f;
+      bool blended = false;
+      any = false;
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) {
+        if (!alive[i]) continue;
+        float dx, dy, vis = 0.0f;
+        const float sigma = gags::splat_sigma(px[i], py[i], g0.x, g0.y, ca, cb, cc, &dx, &dy);
+        const float alpha =
+            gags::surely_floored(sigma, g1.y) ? 0.0f : gags::alpha_of_sigma(sigma, g1.y, &vis);
+        if (alpha != 0.0f) {
+          const float next_t = gags::next_transmittance(T[i], alpha);
+          if (next_t < gags::kTEps) {
+            alive[i] = false;
+          } else {
+            const float w = gags::blend_weight(T[i], alpha);
+            const float u = dot_rn<C>(gp[i], &sc[k * C]);
+            prefix[i] = __fadd_rn(prefix[i], __fmul_rn(u, w));
+            const float inv = __frcp_rn(1.0f - alpha);  // = 1 / (1 - alpha), correctly rounded
+            const float dl_da = u * T[i] - (total[i] - prefix[i]) * inv + ga_tfin[i] * inv;
+            if (alpha < gags::kAlphaClamp) {
+              const float dl_ds = -alpha * dl_da;
+              geo[0] += dl_ds * -(ca * dx + cb * dy);
+              geo[1] += dl_ds * -(cc * dy + cb * dx);
+              geo[2] += dl_ds * (0.5f * dx * dx);
+              geo[3] += dl_ds * (dx * dy);
+              geo[4] += dl_ds * (0.5f * dy * dy);
+              geo[5] += dl_da * vis;
+            }
+#pragma unroll
+            for (int c = 0; c < C; ++c) col[c] += w * gp[i][c];
+            blended = true;
+            T[i] = next_t;
+          }
+        }
+        any |= alive[i];
+      }
+      float* row = s_part + (k * warps + warp) * V;
+      if (__any_sync(gags::kWarpMask, blended)) {
+        gags::warp_sum_store<C>(col, lane, row);
+        gags::warp_sum_store<kGeomGrads>(geo, lane, row + C);
+      } else {
+        for (int v = lane; v < V; v += 32) row[v] = 0.0f;
+      }
+    }
+    for (; k < nb; ++k)  // the warp's pixels have all stopped
+      for (int v = lane; v < V; v += 32) s_part[(k * warps + warp) * V + v] = 0.0f;
+    // every band's partials of batch b are written
+    cluster.sync();
+    const size_t first = static_cast<size_t>(start + b * kBatch);
+    gags::cluster_sums<V>(s_part, nb, bands, band, [&](int kk, int v, float s) {
+      const size_t j = first + kk;
+      if (v < C) grad_col[j * C + v] = s;
+      else grad_geom[j * kGeomRow + (v - C)] = s;
+    });
+  }
+  // no band leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-template <int C>
-size_t smem_bytes(int batch) {
-  return static_cast<size_t>(batch) * (kGeomGrads + C + C + kGeomGrads) * sizeof(float);
-}
-
-template <int C>
+template <int C, int PPT>
 int launch(const float* geom, const float* colors, const int* inst_gid,
-           const int* tile_starts, const int* tile_counts, const float* gout,
+           const int* tile_starts, const int* tile_counts, const int* tile_order,
+           const float* gout,
            const float* galpha, float* grad_col, float* grad_geom,
            int num_tiles, int tiles_x, int tile_h, int tile_w,
            cudaStream_t stream) {
-  const int npix = tile_h * tile_w;
-  int threads = npix < kMaxThreads ? npix : kMaxThreads;
-  threads = (threads + 31) / 32 * 32;
-  // instances staged per batch: one per thread, halved until the batch's
-  // rows fit the default 48 KiB of shared memory (C = 32 takes 128)
-  int batch = threads;
-  while (batch > 32 && smem_bytes<C>(batch) > kSmemLimit) batch /= 2;
-  const dim3 grid(num_tiles, (npix + threads - 1) / threads);
-  blend_backward_full_kernel<C><<<grid, threads, smem_bytes<C>(batch), stream>>>(
-      geom, colors, inst_gid, tile_starts, tile_counts, gout, galpha, grad_col,
-      grad_geom, tiles_x, tile_h, tile_w, batch);
-  return static_cast<int>(cudaGetLastError());
+  gags::BandLayout L;
+  if (!gags::band_layout(tile_h * tile_w, PPT, &L))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return gags::launch_tiles(blend_backward_full_kernel<C, PPT>, num_tiles, L,
+                            smem_bytes<C>(L.threads / 32), stream, geom, colors, inst_gid,
+                            tile_starts, tile_counts, tile_order, gout, galpha, grad_col, grad_geom,
+                            tiles_x, tile_h, tile_w, L.bands);
 }
+
+// PPT = 2 is compiled for C <= 4 only (the registers of two cotangent
+// rows)
+template <int C>
+int launch_ppt(int ppt, const float* geom, const float* colors, const int* inst_gid,
+               const int* tile_starts, const int* tile_counts, const int* tile_order,
+               const float* gout,
+               const float* galpha, float* grad_col, float* grad_geom, int num_tiles,
+               int tiles_x, int tile_h, int tile_w, cudaStream_t stream) {
+  if constexpr (C <= kMaxPairedChannels) {
+    if (ppt == 2)
+      return launch<C, 2>(geom, colors, inst_gid, tile_starts, tile_counts, tile_order, gout,
+                          galpha,
+                          grad_col, grad_geom, num_tiles, tiles_x, tile_h, tile_w, stream);
+  }
+  return launch<C, 1>(geom, colors, inst_gid, tile_starts, tile_counts, tile_order, gout, galpha,
+                      grad_col, grad_geom, num_tiles, tiles_x, tile_h, tile_w, stream);
+}
+
+// two pixels a thread where C <= 4 (the RGB trainer's C = 3), one where
+// two cotangent rows would not fit the registers
+int pixels_per_thread(int channels) { return channels <= kMaxPairedChannels ? 2 : 1; }
 
 }  // namespace
 
@@ -271,15 +350,18 @@ int gags_blend_backward_full_channels(int i) {
   return i < 8 ? kChannels[i] : 0;
 }
 
-// geom (R, 8) f32, colors (R, C) f32, inst_gid (M,) i32, tile_starts and
-// tile_counts (num_tiles,) i32, gout (num_tiles, P, C) f32, galpha
-// (num_tiles, P) f32 net of the background term; grad_col (M, C) and
-// grad_geom (M, 8) f32 ZEROED. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// geom (R, 8) f32, colors (R, C) f32 (both 16-byte aligned), inst_gid
+// (M,) i32, tile_starts and tile_counts (num_tiles,) i32, tile_order
+// (num_tiles,) i32 a permutation of the tiles (the order to start them
+// in; the wrapper passes decreasing counts), gout
+// (num_tiles, P, C) f32, galpha (num_tiles, P) f32 net of the background
+// term; grad_col (M, C) and grad_geom (M, 8) f32 ZEROED (the kernel writes
+// only the rows of the instances it walks). Launches on `stream` and
+// returns the launch's CUDA error code.
 int gags_blend_backward_full(const void* geom, const void* colors,
                              const void* inst_gid, const void* tile_starts,
-                             const void* tile_counts, const void* gout,
-                             const void* galpha, void* grad_col,
+                             const void* tile_counts, const void* tile_order,
+                             const void* gout, const void* galpha, void* grad_col,
                              void* grad_geom, int num_tiles, int tiles_x,
                              int tile_h, int tile_w, int channels,
                              void* stream) {
@@ -289,15 +371,17 @@ int gags_blend_backward_full(const void* geom, const void* colors,
   auto id = static_cast<const int*>(inst_gid);
   auto ts = static_cast<const int*>(tile_starts);
   auto tc = static_cast<const int*>(tile_counts);
+  auto to = static_cast<const int*>(tile_order);
   auto go = static_cast<const float*>(gout);
   auto ga = static_cast<const float*>(galpha);
   auto gc = static_cast<float*>(grad_col);
   auto gg = static_cast<float*>(grad_geom);
   auto s = static_cast<cudaStream_t>(stream);
-#define GAGS_CASE(CH)                                                        \
-  case CH:                                                                   \
-    return launch<CH>(g, col, id, ts, tc, go, ga, gc, gg, num_tiles,        \
-                      tiles_x, tile_h, tile_w, s);
+  const int ppt = pixels_per_thread(channels);
+#define GAGS_CASE(CH)                                                             \
+  case CH:                                                                        \
+    return launch_ppt<CH>(ppt, g, col, id, ts, tc, to, go, ga, gc, gg, num_tiles, \
+                          tiles_x, tile_h, tile_w, s);
   switch (channels) {
     GAGS_CASE(1)
     GAGS_CASE(2)

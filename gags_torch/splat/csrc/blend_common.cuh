@@ -25,24 +25,23 @@ constexpr float kAlphaFloor = 1.0f / 255.0f;
 constexpr float kAlphaClamp = 0.999f;
 constexpr float kTEps = 1e-4f;
 
-// alpha of a splat at pixel centre (px, py); 0 where it does not count.
-// Also returns the offsets dx, dy and vis = exp(-sigma), which the
-// geometry gradient needs (vis is left unset where sigma < 0).
-__device__ __forceinline__ float splat_alpha_parts(float px, float py,
-                                                   float mx, float my,
-                                                   float ca, float cb,
-                                                   float cc, float op,
-                                                   float* dx_out,
-                                                   float* dy_out,
-                                                   float* vis_out) {
+// sigma of a splat at pixel centre (px, py), and the offsets dx, dy
+__device__ __forceinline__ float splat_sigma(float px, float py, float mx, float my,
+                                             float ca, float cb, float cc,
+                                             float* dx_out, float* dy_out) {
   const float dx = __fsub_rn(px, mx);
   const float dy = __fsub_rn(py, my);
   *dx_out = dx;
   *dy_out = dy;
   const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
                                __fmul_rn(__fmul_rn(cc, dy), dy));
-  const float sigma =
-      __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
+  return __fadd_rn(__fmul_rn(0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
+}
+
+// alpha of a splat of opacity op at a pixel where it has the given
+// sigma; 0 where it does not count. Also returns vis = exp(-sigma), which
+// the geometry gradient needs (left unset where sigma < 0).
+__device__ __forceinline__ float alpha_of_sigma(float sigma, float op, float* vis_out) {
   if (sigma < 0.0f) return 0.0f;
   const float vis = expf(-sigma);
   *vis_out = vis;
@@ -50,11 +49,23 @@ __device__ __forceinline__ float splat_alpha_parts(float px, float py,
   return alpha < kAlphaFloor ? 0.0f : alpha;
 }
 
+// alpha of a splat at pixel centre (px, py); 0 where it does not count
 __device__ __forceinline__ float splat_alpha(float px, float py, float mx,
                                              float my, float ca, float cb,
                                              float cc, float op) {
   float dx, dy, vis;
-  return splat_alpha_parts(px, py, mx, my, ca, cb, cc, op, &dx, &dy, &vis);
+  return alpha_of_sigma(splat_sigma(px, py, mx, my, ca, cb, cc, &dx, &dy), op, &vis);
+}
+
+// True where alpha_of_sigma(sigma, op) is surely 0 without its exp: for
+// op <= 1, sigma > 5.55 gives op exp(-sigma) <= exp(-5.55) = 0.00389,
+// 0.9% below the 1/255 floor, far beyond expf's and the product's
+// rounding. The backward blends test it first: most walked pairs lie
+// outside the splat's footprint.
+constexpr float kFarSigma = 5.55f;
+
+__device__ __forceinline__ bool surely_floored(float sigma, float op) {
+  return sigma > kFarSigma && op <= 1.0f;
 }
 
 // transmittance after a splat of the given alpha

@@ -402,6 +402,30 @@ def _padded_channels(lib, query: str, c: int, what: str) -> int:
     return cp
 
 
+# the backward blends' largest tile: a cluster of 8 bands of 256 threads,
+# a pixel each (csrc/tile_reduce.cuh)
+BACKWARD_MAX_TILE_PIXELS = 8 * 256
+
+
+def _check_tile(tile_h, tile_w, what):
+    if tile_h * tile_w > BACKWARD_MAX_TILE_PIXELS:
+        raise ValueError(f"{what}: a {tile_h}x{tile_w} tile exceeds "
+                         f"{BACKWARD_MAX_TILE_PIXELS} pixels")
+
+
+def _tile_order(tile_counts: torch.Tensor) -> torch.Tensor:
+    """The tiles by decreasing instance count, ties in tile order: the
+    backward blends start the longest walks first and fill in behind them
+    with the short ones."""
+    return torch.argsort(tile_counts, descending=True, stable=True).to(torch.int32)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels gather its rows with 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_ranges(tile_starts, tile_counts, num_tiles, dev):
     _check_tensor("tile_starts", tile_starts, torch.int32, dev, ndim=1)
     _check_tensor("tile_counts", tile_counts, torch.int32, dev, ndim=1)
@@ -541,7 +565,8 @@ def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
     sentinel row, inst_gid (M,) i32, tile_starts and tile_counts (T,) i32,
     g (T, P, C) f32 the cotangent of the tile image's C channels. Returns
     (M, C) f32: grad[j] = sum_p w[p, j] g[p], the blend weights recomputed
-    as the forward computed them; rows outside every range are zero.
+    as the forward computed them; rows outside every range are zero. Two
+    launches give the same bits (each row has one writer).
     """
     if not _dispatch(geom):
         return blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
@@ -558,15 +583,19 @@ def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
     c = g.shape[2]
     if g.shape[:2] != (num_tiles, npix):
         raise ValueError(f"g: expected ({num_tiles}, {npix}, C), got {tuple(g.shape)}")
+    _check_tile(tile_h, tile_w, "blend_backward")
     lib = _kernels.load(BLEND_BACKWARD_SRC)
     cp = _padded_channels(lib, "gags_blend_backward_channels", c, "blend_backward")
     if cp != c:
         g = torch.nn.functional.pad(g, (0, cp - c)).contiguous()
+    geom = _aligned16(geom)
+    # the kernel stores the rows of the instances it walks; the others stay 0
     grad = torch.zeros((inst_gid.shape[0], cp), dtype=torch.float32, device=dev)
+    order = _tile_order(tile_counts)
     fn = lib.gags_blend_backward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(_ptr(geom), _ptr(inst_gid), _ptr(tile_starts), _ptr(tile_counts),
+    err = fn(_ptr(geom), _ptr(inst_gid), _ptr(tile_starts), _ptr(tile_counts), _ptr(order),
              _ptr(g), _ptr(grad), num_tiles, tiles_x, tile_h, tile_w, cp,
              _stream(geom))
     _kernels.check(lib, err, "blend_backward")
@@ -648,8 +677,9 @@ def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
     term (g_alpha - g_img . bg: the forward blends bg against T_fin).
     Returns row-major (M, C) colour and (M, 8) geometry gradients, the
     latter [mx, my, ca, cb, cc, opac, 0, 0]; rows outside every range and
-    behind a pixel's stop are zero. (The Pallas kernel's (C, M) and (8, M)
-    lane-major outputs are a TPU layout; these rows feed K3 directly.)
+    behind a pixel's stop are zero. Two launches give the same bits (each
+    row has one writer). (The Pallas kernel's (C, M) and (8, M) lane-major
+    outputs are a TPU layout; these rows feed K3 directly.)
     """
     if not _dispatch(geom):
         return blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts,
@@ -670,20 +700,24 @@ def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
         raise ValueError(f"g_img: expected ({num_tiles}, {npix}, {c}), got {tuple(g_img.shape)}")
     if g_alpha.shape != (num_tiles, npix, 1):
         raise ValueError(f"g_alpha: expected ({num_tiles}, {npix}, 1), got {tuple(g_alpha.shape)}")
+    _check_tile(tile_h, tile_w, "blend_backward_full")
     lib = _kernels.load(BLEND_BACKWARD_FULL_SRC)
     cp = _padded_channels(lib, "gags_blend_backward_full_channels", c, "blend_backward_full")
     if cp != c:  # zero channels add nothing to u = g_img . colour
         colors = torch.nn.functional.pad(colors, (0, cp - c)).contiguous()
         g_img = torch.nn.functional.pad(g_img, (0, cp - c)).contiguous()
+    geom, colors = _aligned16(geom), _aligned16(colors)
     m = inst_gid.shape[0]
+    # the kernel stores the rows of the instances it walks; the others stay 0
     grad_col = torch.zeros((m, cp), dtype=torch.float32, device=dev)
     grad_geom = torch.zeros((m, 8), dtype=torch.float32, device=dev)
+    order = _tile_order(tile_counts)
     fn = lib.gags_blend_backward_full
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts), _ptr(tile_counts),
-             _ptr(g_img), _ptr(g_alpha), _ptr(grad_col), _ptr(grad_geom), num_tiles, tiles_x,
-             tile_h, tile_w, cp, _stream(geom))
+             _ptr(order), _ptr(g_img), _ptr(g_alpha), _ptr(grad_col), _ptr(grad_geom),
+             num_tiles, tiles_x, tile_h, tile_w, cp, _stream(geom))
     _kernels.check(lib, err, "blend_backward_full")
     launch_counts["blend_backward_full"] += 1
     return (grad_col[:, :c].contiguous() if cp != c else grad_col), grad_geom

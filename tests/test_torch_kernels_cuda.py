@@ -77,8 +77,12 @@ def test_rasterize_on_card_launches_both_kernels(dev):
     assert kernels.launch_counts["blend_forward"] == 1
 
 
-def _aligned_inputs(dev, n, cdim, width=320, height=180, tile=(16, 16), chunk=128):
-    raw = make_scene(n, seed=3, extent=3.0, feature_dim=cdim)
+def _aligned_inputs(dev, n, cdim, width=320, height=180, tile=(16, 16), chunk=128,
+                    saturated=False):
+    raw = make_scene(n, seed=3, extent=3.0 if not saturated else 0.6, feature_dim=cdim)
+    if saturated:  # near-opaque, concentrated: rays end early, alphas clamp at 0.999
+        raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, n).astype(np.float32)
+        raw["scales"] *= 3.0
     cam = make_camera(width, height, device=dev)
     t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
     cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1], chunk=chunk)
@@ -106,20 +110,27 @@ def test_blend_forward_aligned_matches_plain(dev, cdim, tile):
     assert float((err > 2e-5 + 1e-4 * want.abs()).float().mean()) < 1e-3
 
 
-@pytest.mark.parametrize("cdim,tile", [(16, (16, 16)), (16, (32, 32)), (3, (8, 16)), (5, (32, 32))])
-def test_blend_backward_matches_plain(dev, cdim, tile):
-    binned, geom, _, tx, ty = _aligned_inputs(dev, 4000, cdim, tile=tile)
+@pytest.mark.parametrize("cdim,tile,saturated", [
+    (16, (16, 16), False), (16, (32, 32), False), (3, (8, 16), False), (5, (32, 32), False),
+    (17, (32, 32), False), (32, (32, 32), False), (16, (16, 8), False), (3, (32, 32), False),
+    (16, (32, 32), True), (16, (12, 20), False)])
+def test_blend_backward_matches_plain(dev, cdim, tile, saturated):
+    binned, geom, _, tx, ty = _aligned_inputs(dev, 4000, cdim, tile=tile, saturated=saturated)
     g = torch.as_tensor(np.random.default_rng(0).normal(size=(tx * ty, tile[0] * tile[1], cdim)),
                         dtype=torch.float32, device=dev)
     args = (geom, binned.inst_gid, binned.tile_starts, binned.tile_counts, g, tx, ty,
             tile[0], tile[1])
+    kernels.reset_launch_counts()
     got = kernels.blend_backward(*args)
+    again = kernels.blend_backward(*args)
     want = kernels.blend_backward_plain(*args)
     torch.cuda.synchronize()
+    assert kernels.launch_counts["blend_backward"] == 2
+    assert torch.equal(got, again)  # one writer per row, a fixed order of addition
     assert got.shape == want.shape
     err = (got - want).abs()
     outside = err > 1e-6 + 1e-4 * want.abs()
-    # sums in another order (atomics) plus isolated threshold flips
+    # sums in another order plus isolated threshold flips
     assert float(outside.float().mean()) < 1e-3, float(err.max())
     assert float(err.mean()) <= 1e-5
 
@@ -216,11 +227,11 @@ def test_dense_segment_sum_matches_plain(dev, kind, segments, cdim, p):
 
 def _k8_compare(got, want, what):
     """Column by column, each against its own scale (the conic columns are
-    thousands of times larger than mx, my and opacity). Atomics add in no
-    fixed order, and isolated splats may flip at the 1/255 or 1e-4
-    thresholds (NUMERICS.md): at most 0.1% of a column's values outside
-    1e-5 max|g| + 1e-4 rel, its mean error at most 1e-6 max|g| and 1e-3
-    mean|g|."""
+    thousands of times larger than mx, my and opacity). The sums are taken
+    in another order than the plain version's, and isolated splats may flip
+    at the 1/255 or 1e-4 thresholds (NUMERICS.md): at most 0.1% of a
+    column's values outside 1e-5 max|g| + 1e-4 rel, its mean error at most
+    1e-6 max|g| and 1e-3 mean|g|."""
     assert torch.isfinite(got).all(), what
     for j in range(want.shape[1]):
         g, w = got[:, j], want[:, j]
@@ -234,37 +245,59 @@ def _k8_compare(got, want, what):
         assert float(err.mean()) <= 1e-3 * float(w.abs().mean()), (what, j, float(err.mean()))
 
 
-@pytest.mark.parametrize("cdim,saturated", [(3, False), (3, True), (8, True), (16, False),
-                                            (16, True)])
-def test_blend_backward_full_matches_plain(dev, cdim, saturated):
-    raw = make_scene(4000, seed=4, extent=3.0 if not saturated else 0.6, feature_dim=cdim)
+def _k8_args(dev, n, cdim, tile, saturated=False, width=320, height=180):
+    raw = make_scene(n, seed=4, extent=3.0 if not saturated else 0.6, feature_dim=cdim)
     if saturated:  # near-opaque, concentrated: rays end early, alphas clamp at 0.999
-        raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, 4000).astype(np.float32)
+        raw["opacities"] = np.random.default_rng(1).uniform(0.9, 0.9999, n).astype(np.float32)
         raw["scales"] *= 3.0
-    cam = make_camera(320, 180, device=dev)
+    cam = make_camera(width, height, device=dev)
     t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
-    cfg = RasterizeConfig(tile_h=16, tile_w=16)
+    cfg = RasterizeConfig(tile_h=tile[0], tile_w=tile[1])
     _, binned, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"], t["opacities"],
-                                       cam.viewmat, cam.K, 320, 180, cfg)
+                                       cam.viewmat, cam.K, width, height, cfg)
     perm = order_ext(binned.order.long())
     col = torch.cat([t["features"], torch.zeros((1, cdim), device=dev)])[perm].contiguous()
     rng = np.random.default_rng(cdim)
-    npix = 16 * 16
+    npix = tile[0] * tile[1]
     g_img = torch.as_tensor(rng.normal(size=(tx * ty, npix, cdim)), dtype=torch.float32, device=dev)
     g_alpha = torch.as_tensor(rng.normal(size=(tx * ty, npix, 1)), dtype=torch.float32, device=dev)
-    args = (geom[perm].contiguous(), col, binned.inst_gid, binned.tile_starts, binned.tile_counts,
-            g_img, g_alpha, tx, ty, 16, 16)
+    return (geom[perm].contiguous(), col, binned.inst_gid, binned.tile_starts, binned.tile_counts,
+            g_img, g_alpha, tx, ty, tile[0], tile[1])
+
+
+def _k8_check(args, cdim, saturated):
     kernels.reset_launch_counts()
     got = kernels.blend_backward_full(*args)
+    again = kernels.blend_backward_full(*args)
     want = kernels.blend_backward_full_plain(*args)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["blend_backward_full"] == 1
+    assert kernels.launch_counts["blend_backward_full"] == 2
+    # one writer per row, a fixed order of addition
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     if saturated:
-        out = kernels.blend_forward_plain(*args[:5], torch.zeros(cdim, device=dev), tx, ty, 16, 16)
+        tx, ty, th, tw = args[7:]
+        out = kernels.blend_forward_plain(*args[:5], torch.zeros(cdim, device=args[0].device),
+                                          tx, ty, th, tw)
         assert int((out[..., -1] > 0.999).sum()) > 100  # many rays end early
     _k8_compare(got[0], want[0], f"colour C={cdim}")
     _k8_compare(got[1][:, :6], want[1][:, :6], f"geometry C={cdim}")
     assert not got[1][:, 6:].any()
+
+
+@pytest.mark.parametrize("cdim,saturated,tile,frame", [
+    (3, False, (16, 16), None), (3, True, (16, 16), None), (8, True, (16, 16), None),
+    (16, False, (16, 16), None), (16, True, (16, 16), None), (3, False, (32, 32), None),
+    (3, True, (32, 32), None), (16, False, (32, 32), None), (5, False, (32, 32), None),
+    (32, False, (32, 32), None), (3, False, (16, 8), None), (17, True, (16, 8), None),
+    # 12x20: a width that is no multiple of 8, so warps own runs of
+    # consecutive pixels instead of 8x4 blocks
+    (3, False, (12, 20), None), (5, False, (12, 20), None),
+    # the RGB trainer's frame: 920 tiles of very different counts
+    (3, False, (32, 32), (1280, 720, 20_000)), (3, True, (32, 32), (1280, 720, 20_000)),
+    (1, False, (32, 32), (1280, 720, 20_000))])
+def test_blend_backward_full_matches_plain(dev, cdim, saturated, tile, frame):
+    width, height, n = frame or (320, 180, 4000)
+    _k8_check(_k8_args(dev, n, cdim, tile, saturated, width, height), cdim, saturated)
 
 
 def test_rasterize_geometry_gradient_on_card_matches_cpu(dev):

@@ -198,4 +198,4 @@ def test_library_path_follows_included_headers(tmp_path):
     (tmp_path / "extra.cuh").write_text("#pragma once\n// edited\n")
     assert _kernels._lib_path(src) not in (third, second, first)
     assert [h.name for h in _kernels._local_headers(kernels.BLEND_BACKWARD_SRC)] == [
-        "blend_common.cuh"]
+        "blend_common.cuh", "tile_reduce.cuh"]

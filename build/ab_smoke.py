@@ -16,8 +16,9 @@ module of its own, driving its own csrc sources) in place of the
 checkout's for that tree's turns, and each tree's outputs are compared
 with the checkout's. So a kernel whose C interface changed is timed
 against its parent all the same. Prints one "# A/B ..." line per such
-call, just before the smoke's own line for it, and after the smoke's
-last line one {"ab": [...]} line. Exits 1 unless the smoke passed, some
+call, just before the smoke's own line for it (`identical`: a tree's
+outputs equal the checkout's bit for bit), and after the smoke's last
+line one {"ab": [...]} line. Exits 1 unless the smoke passed, some
 call was compared and every comparison agreed.
 """
 
@@ -127,6 +128,7 @@ def main() -> int:
         r = dict(sources=hit, caller=f"{caller.f_code.co_name}:{caller.f_lineno}", locals=where,
                  checkout_ms=mean["checkout"], other_ms={t: mean[t] for t in swaps},
                  turns=turns, max_abs_diff=diff, max_abs=scale,
+                 identical={t: d == 0 for t, d in diff.items()},
                  agree=all(d <= AGREE_RTOL * scale for d in diff.values()))
         print(f"# A/B {r}", flush=True)
         results.append(r)

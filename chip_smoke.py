@@ -14,8 +14,9 @@ Phases, each of which fails the run:
   4. K5 blend_forward vs its plain version on the full 1280x720 frame, for
      the 16 feature channels and the 3 SH colour channels: atol 2e-5 /
      rtol 1e-4 with the NUMERICS.md allowance for isolated threshold flips
-     (at most 0.01% of values outside, mean abs error <= 1e-5); its device
-     time per call (torch.profiler) beside the CUDA-events time;
+     (at most 0.01% of values outside, mean abs error <= 1e-5), and
+     bit-identical on a second launch; its device time per call
+     (torch.profiler) beside the CUDA-events time;
   5. serve the bench scene (make_scene(250_000, seed=0, extent=3.0), 16-dim
      features, full-width decoders from a seeded torch.Generator) through
      SceneServer behind ThreadingHTTPServer on 127.0.0.1: /health,
@@ -38,7 +39,7 @@ Phases, each of which fails the run:
   8. K1-K4 against their plain versions on camera 0's binning (overflow 0
      at budget factor 4) and the real cotangents of its loss, with times,
      bounds and index_add_ yardsticks (K1 and K2 by device time per call
-     beside the CUDA-events time, K2 bit-identical on a second launch; K4
+     beside the CUDA-events time, both bit-identical on a second launch; K4
      at 1025 and 4097 segments, for
      2 and 33 channels; K3 on K2's rows, C = 16, also against index_add_
      over inst_gid and bit-identical on a second launch, with an index_add_
@@ -58,7 +59,8 @@ Phases, each of which fails the run:
      fast_color_rows, blend_bf16 (also against the f32 image at its
      contract), exit_stats (totals exact, at most STATS_MOVED_TILES tiles
      moved by a threshold flip) and block_exit (bit-identical) on the
-     serve frame, and exit_stats once more on a saturated 1280x720 frame
+     serve frame, each leg (and f32) timed by device time per call beside
+     the CUDA-events time, and exit_stats once more on a saturated 1280x720 frame
      (SAT_GAUSSIANS dense, near-opaque splats) where tiles must stop
      early; (c) gags_torch.cli.render.run on phase 7's model dir
      (four cameras at 1280x720, -r 1) with an autotune store of its own:
@@ -90,13 +92,18 @@ Phases, each of which fails the run:
      means2d tap's gradient (K8 then K3) against the plain version's mx, my
      rows summed per Gaussian; once more with a seeded N(0, 1) alpha
      cotangent (the loss gives 0); bit-identical on a second launch; with
-     K8's device time per call, events time, bound and plain time; then
+     K8's device time per call, events time, bound and plain time; K1 on
+     the same binning and colours (C = 3) against its plain version at
+     phase 4's tolerance, bit-identical on a second launch, with its device
+     and events times, its bound from the plain version's pair counts and
+     its launches in the 300 steps; then
      K3 at the RGB widths on K8's colour (C = 3) and geometry (C = 8) rows
      over camera 0's ReductionLayout, checked and timed as in phase 8;
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
      0: its PSNR against the ground truth must exceed the seed cloud's;
  14. print {"kernels": [...]} with times, bounds and launch counts of
-     K1-K8 (K3 by width: GAD C = 16, RGB C = 3 and 8), then the card's
+     K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
+     and 8), then the card's
      name and power limit, then the final {"ok": true, ...}.
 """
 
@@ -178,19 +185,24 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # each kernel's time per launch times its launches per call: the
-    # profiler loses records (on the H100 it kept 19 of 20 launches of a
-    # call's last kernel in every run, and once about half of them), so a
-    # sum over the run divided by the calls reads low
-    busy = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count)
-    if busy <= 0:
-        fail("torch.profiler recorded no device time")
-    return busy / 1e3
+    # the profiler may record no device event of a run at all (it did once
+    # on the H100, for K3 at C = 8): such a run is profiled again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # each kernel's time per launch times its launches per call: the
+        # profiler loses records (on the H100 it kept 19 of 20 launches of
+        # a call's last kernel in every run, and once about half of them),
+        # so a sum over the run divided by the calls reads low
+        busy = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count)
+        if busy > 0:
+            return busy / 1e3
+        print("# torch.profiler recorded no device time: profiling again", flush=True)
+    fail("torch.profiler recorded no device time in three runs")
 
 
 def flip_tolerant_compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
@@ -257,17 +269,21 @@ def count_syncs(fn) -> dict:
 
 
 def ptxas_summary(log: str) -> list[str]:
-    """'<kernel><T>: N registers, S bytes spill stores' per entry function,
-    T its first integer template argument (the blends' channel count, K3's
-    vector width, K4's strip length)."""
+    """'<kernel><T,...>: N registers, S bytes spill stores, L bytes spill
+    loads' per entry function, T,... its integer template arguments (the
+    blends' channel count and pixels a thread, K3's vector width, K4's
+    strip length)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?", line.split("'")[1])
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            mangled = line.split("'")[1]
+            name = re.search(r"([a-z][a-z_]*_kernel)", mangled).group(1)
+            args = re.search(name + r"I(.*?)EEv", mangled)
+            ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            name += f"<{','.join(ints)}>" if ints else ""
             name += "[bf16]" if "bfloat16" in line else ""
         elif "spill stores" in line:
-            spill = line.split(",")[1].strip()
+            spill = ", ".join(part.strip() for part in line.split(",")[1:])
         elif "registers" in line and name:
             regs = line.split("Used")[1].split(",")[0].strip()
             out.append(f"{name}: {regs}, {spill}")
@@ -308,6 +324,16 @@ def tile_stats(counts: torch.Tensor) -> dict:
     q = torch.quantile(c, torch.tensor([0.5, 0.9, 1.0], dtype=torch.float64, device=c.device))
     return dict(tiles=c.numel(), mean=float(c.mean()), median=float(q[0]), p90=float(q[1]),
                 max=float(q[2]))
+
+
+def blend_ops(near: int, blended: int, per_blended: int, walks: int = 1) -> int:
+    """The operations a blend must do on this data: per walk, the
+    blend_common.cuh arithmetic (16) on each pair near enough to its splat
+    that no exact test short of alpha excludes it (the plain versions'
+    `near` count), and per_blended on each blended pair. The other walked
+    pairs cost a kernel a few compares per warp (the box test) and are not
+    charged."""
+    return walks * 16 * near + per_blended * blended
 
 
 def with_bound(r: dict) -> dict:
@@ -538,15 +564,17 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         bg = torch.zeros((fdim,), device=dev)
         a1 = (geom_p, cols_p, b.inst_gid, b.tile_starts, b.tile_counts, bg, tx, ty, th, tw)
         out_k = kernels.blend_forward_aligned(*a1)
+        if not torch.equal(out_k, kernels.blend_forward_aligned(*a1)):  # one writer per pixel
+            fail(f"K1 C={fdim}: two launches differ")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out_p, walked, blended = kernels.blend_forward_plain(*a1, return_pairs=True)
+        out_p, walked, blended, near = kernels.blend_forward_plain(*a1, return_pairs=True)
         torch.cuda.synchronize()
         k1_plain = (time.perf_counter() - t0) * 1e3
         cmp1 = flip_tolerant_compare(out_k, out_p, f"K1 blend_forward_aligned C={fdim}")
         nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel()
                   + 2 * b.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
-        ops = 16 * walked + (4 + 2 * fdim) * blended
+        ops = blend_ops(near, blended, 4 + 2 * fdim)
         k1_fn = lambda: kernels.blend_forward_aligned(*a1)  # noqa: E731
         report.append(dict(
             name="blend_forward_aligned", id="K1", route="cuda",
@@ -554,8 +582,9 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             replaces="gags_tpu/splat/pallas_kernel.py:1909",
             ms=device_ms(k1_fn), events_ms=cuda_ms(k1_fn, 20), plain_ms=k1_plain,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
-            library_ms=None, pairs_walked=walked, pairs_blended=blended, timing=DEVICE_TIMING,
-            **cmp1))
+            library_ms=None, channels=fdim, pairs_walked=walked, pairs_blended=blended,
+            pairs_near=near, bit_identical=True, instances_per_tile=tile_stats(b.tile_counts),
+            timing=DEVICE_TIMING, **cmp1))
         del out_k, out_p
 
         # K2
@@ -567,7 +596,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             fail(f"K2: two launches differ at {int((grad_k != again).sum())} values")
         del again
         t0 = time.perf_counter()
-        grad_p, walked2, blended2 = kernels.blend_backward_plain(*a2, return_pairs=True)
+        grad_p, walked2, blended2, near2 = kernels.blend_backward_plain(*a2, return_pairs=True)
         torch.cuda.synchronize()
         k2_plain = (time.perf_counter() - t0) * 1e3
         err = (grad_k - grad_p).abs()
@@ -580,7 +609,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             fail(f"K2 blend_backward disagrees with its plain version: {cmp2}")
         nbytes = (geom_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
                   + g_tiles.numel() + grad_k.numel()) * 4
-        ops = 16 * walked2 + 2 * fdim * blended2
+        ops = blend_ops(near2, blended2, 2 * fdim)
         k2_fn = lambda: kernels.blend_backward(*a2)  # noqa: E731
         report.append(dict(
             name="blend_backward", id="K2", route="cuda",
@@ -588,7 +617,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             replaces="gags_tpu/splat/pallas_kernel.py:1969",
             ms=device_ms(k2_fn), events_ms=cuda_ms(k2_fn, 20), plain_ms=k2_plain,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
-            library_ms=None, pairs_walked=walked2, pairs_blended=blended2,
+            library_ms=None, pairs_walked=walked2, pairs_blended=blended2, pairs_near=near2,
             max_abs_err=cmp2["max_abs_err"], mean_abs_err=cmp2["mean_abs_err"],
             bit_identical=True, timing=DEVICE_TIMING, instances_per_tile=tile_stats(b.tile_counts)))
         del grad_p
@@ -834,13 +863,15 @@ def k5_options_phase(serve: dict, gpu: str) -> dict:
     blend_bf16 at phase 4's tolerance, blend_bf16 also against the f32
     image at its contract, the counters exact but for STATS_MOVED_TILES,
     block_exit bit-identical; then the counters once more on the
-    saturated frame, where some tile must stop early."""
+    saturated frame, where some tile must stop early. Each leg (f32,
+    bf16 rows, bf16 blend, bf16 rows with the counters) is timed by device
+    time per call beside the CUDA-events time."""
     from gags_torch.splat import kernels
 
     args, chunk = serve["args"], serve["chunk"]
     c = args[1].shape[1]
     f32 = kernels.blend_forward(*args)
-    res = {"f32": dict(ms=cuda_ms(lambda: kernels.blend_forward(*args), 20))}
+    res = {"f32": {}}
     if not torch.equal(kernels.blend_forward(*args, block_exit=True), f32):
         fail("K5 block_exit changes the image")
     out_k, st_k = kernels.blend_forward(*args, fast_color_rows=True, exit_stats=True, chunk=chunk)
@@ -853,12 +884,8 @@ def k5_options_phase(serve: dict, gpu: str) -> dict:
     if not torch.equal(out_k, kernels.blend_forward(*args, fast_color_rows=True)):
         fail("K5 exit_stats changes the image")
     res["fast_color_rows"] = dict(
-        ms=cuda_ms(lambda: kernels.blend_forward(*args, fast_color_rows=True), 20),
         plain_ms=plain_ms, **flip_tolerant_compare(out_k, out_p, f"K5 fast_color_rows C={c}"))
-    res["exit_stats"] = dict(
-        ms=cuda_ms(lambda: kernels.blend_forward(*args, fast_color_rows=True, exit_stats=True,
-                                                 chunk=chunk), 20),
-        **exit_stats_compare(st_k, st_p, "K5 serve frame"))
+    res["exit_stats"] = exit_stats_compare(st_k, st_p, "K5 serve frame")
     print(f"# K5 exit_stats: {res['exit_stats']} ({gpu})", flush=True)
 
     sat = saturated_frame(args[0].device)
@@ -881,8 +908,7 @@ def k5_options_phase(serve: dict, gpu: str) -> dict:
     out_bp = kernels.blend_forward_plain(*args, blend_bf16=True)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    res["blend_bf16"] = dict(ms=cuda_ms(lambda: kernels.blend_forward(*args, blend_bf16=True), 20),
-                             plain_ms=plain_ms,
+    res["blend_bf16"] = dict(plain_ms=plain_ms,
                              **flip_tolerant_compare(out_b, out_bp, f"K5 blend_bf16 C={c}"))
     scale = float(f32[..., :c].abs().max())
     d = (out_b[..., :c] - f32[..., :c]).abs()
@@ -892,9 +918,15 @@ def k5_options_phase(serve: dict, gpu: str) -> dict:
     print(f"# K5 blend_bf16 vs the f32 image: {contract} (contract 5e-2, 5e-3, 0.03)", flush=True)
     if contract["max_rel"] > 5e-2 or contract["mean_rel"] > 5e-3 or contract["alpha_max_abs"] > 0.03:
         fail(f"K5 blend_bf16 breaks its contract against f32: {contract}")
-    print(f"# K5 options at 1280x720, C={c}: f32 {res['f32']['ms']:.4f} ms, bf16 rows "
-          f"{res['fast_color_rows']['ms']:.4f} ms, bf16 blend {res['blend_bf16']['ms']:.4f} ms, "
-          f"with exit_stats {res['exit_stats']['ms']:.4f} ms ({gpu})", flush=True)
+    legs = {"f32": {}, "fast_color_rows": dict(fast_color_rows=True),
+            "blend_bf16": dict(blend_bf16=True),
+            "exit_stats": dict(fast_color_rows=True, exit_stats=True, chunk=chunk)}
+    for option, kw in legs.items():
+        fn = lambda: kernels.blend_forward(*args, **kw)  # noqa: E731
+        res[option].update(ms=device_ms(fn), events_ms=cuda_ms(fn, 20))
+    print(f"# K5 options at 1280x720, C={c}, device ms (events ms): "
+          + ", ".join(f"{k} {res[k]['ms']:.4f} ({res[k]['events_ms']:.4f})" for k in legs)
+          + f" ({gpu})", flush=True)
     return res
 
 
@@ -1112,7 +1144,8 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
     """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
     the step's times and profile, K8 against its plain version on the
     trained state with the loss's real cotangents, and the snapshot PLY
-    rendered. Returns K8's report entry and K3's at the RGB widths."""
+    rendered. Returns K8's report entry, K3's at the RGB widths and K1's
+    at the RGB width."""
     import dataclasses
 
     from gags_torch.cli.train_rgb import RunConfig, run
@@ -1240,7 +1273,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                 fail(f"K8 {what}: two launches differ at {int((part != other).sum())} values")
         del again
         t0 = time.perf_counter()
-        want_col, want_geo, walked, blended = kernels.blend_backward_full_plain(
+        want_col, want_geo, walked, blended, near = kernels.blend_backward_full_plain(
             *a8, return_pairs=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1266,10 +1299,9 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
         del got_r, want_r, g_alpha_r
         nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel() + 2 * b.tile_starts.numel()
                   + g_img.numel() + g_alpha.numel() + got[0].numel() + got[1].numel()) * 4
-        # per walked pair and walk: the blend_common arithmetic (16); per
-        # blended pair: walk A 5 + 2C, walk B ~40 + 4C (u, the prefix, the
-        # chain rule, C + 6 products and their sums)
-        ops = 2 * 16 * walked + (45 + 6 * 3) * blended
+        # two walks; per blended pair: walk A 5 + 2C, walk B ~40 + 4C (u,
+        # the prefix, the chain rule, C + 6 products and their sums)
+        ops = blend_ops(near, blended, 45 + 6 * 3, walks=2)
         k8 = dict(
             name="blend_backward_full", id="K8", route="cuda",
             source="gags_torch/splat/csrc/blend_backward_full.cu",
@@ -1281,7 +1313,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
             ms=device_ms(lambda: kernels.blend_backward_full(*a8)),
             events_ms=cuda_ms(lambda: kernels.blend_backward_full(*a8), 10), plain_ms=plain_ms,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
-            library_ms=None, pairs_walked=walked, pairs_blended=blended,
+            library_ms=None, pairs_walked=walked, pairs_blended=blended, pairs_near=near,
             instances=int(b.num_valid), slots=b.inst_gid.numel(), budget_factor=factor,
             check_resolution=f"{w}x{h}", by_output=cmp8, bit_identical=True,
             instances_per_tile=tile_stats(b.tile_counts),
@@ -1289,8 +1321,34 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
             rgb_launches={k: v for k, v in launches.items() if v})
         with_bound(k8)
         print(f"# K8 blend_backward_full: ms {k8['ms']:.4f}, plain {plain_ms:.1f} ms, bound "
-              f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}), {walked} pairs walked, {blended} "
-              f"blended, {k8['instances']} instances ({gpu})", flush=True)
+              f"{k8['bound_ms']:.4f} ms ({k8['bound_by']}), {walked} pairs walked, {near} near, "
+              f"{blended} blended, {k8['instances']} instances ({gpu})", flush=True)
+        # K1 at the RGB width, on the binning and colours K8 took
+        bg = torch.zeros(3, device=dev)
+        a1 = (geom_p, cols_p, b.inst_gid, b.tile_starts, b.tile_counts, bg, tx, ty, th, tw)
+        out_k = kernels.blend_forward_aligned(*a1)
+        if not torch.equal(out_k, kernels.blend_forward_aligned(*a1)):  # one writer per pixel
+            fail("K1 RGB C=3: two launches differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p, walked1, blended1, near1 = kernels.blend_forward_plain(*a1, return_pairs=True)
+        torch.cuda.synchronize()
+        k1_plain = (time.perf_counter() - t0) * 1e3
+        cmp1 = flip_tolerant_compare(out_k, out_p, "K1 blend_forward_aligned RGB C=3")
+        nbytes = (geom_p.numel() + cols_p.numel() + b.inst_gid.numel()
+                  + 2 * b.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
+        k1_fn = lambda: kernels.blend_forward_aligned(*a1)  # noqa: E731
+        k1_rgb = with_bound(dict(
+            channels=3, launches=launches["blend_forward_aligned"],
+            launches_per_step=launches["blend_forward_aligned"] / RGB_STEPS,
+            ms=device_ms(k1_fn), events_ms=cuda_ms(k1_fn, 20), plain_ms=k1_plain,
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_ms=blend_ops(near1, blended1, 4 + 2 * 3) / FP32_OPS_PER_S * 1e3,
+            library_ms=None, pairs_walked=walked1, pairs_blended=blended1, pairs_near=near1,
+            bit_identical=True,
+            instances_per_tile=tile_stats(b.tile_counts), **cmp1))
+        print(f"# K1 blend_forward_aligned RGB C=3: {k1_rgb} ({gpu})", flush=True)
+        del out_k, out_p
         # K3 at the RGB widths, on K8's real colour and geometry rows, for
         # the n ranks (as _BlendFull's backward calls it)
         k3_rgb = {f"RGB C={r.shape[1]}": k3_check(kernels, r, b, n_g, f"RGB C={r.shape[1]}")
@@ -1317,7 +1375,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                  f"cloud's {db['seed']} dB")
         print(f"# snapshot PLY: {scene.num_gaussians} Gaussians, camera 0 PSNR "
               f"{db['snapshot']:.3f} dB (seed cloud {db['seed']:.3f} dB)", flush=True)
-    return k8, k3_rgb
+    return k8, k3_rgb, k1_rgb
 
 
 def main() -> int:
@@ -1350,6 +1408,11 @@ def main() -> int:
     for log in logs.values():
         for line in ptxas_summary(log):
             print(f"#   {line}")
+            # blend_forward.cu's launch bounds are a rule per colour type
+            # (min_blocks) that holds only while ptxas spills nothing
+            if line.startswith("blend_forward_kernel") and not line.endswith(
+                    " 0 bytes spill stores, 0 bytes spill loads"):
+                fail(f"blend_forward spills: {line}")
 
     # -- scene ---------------------------------------------------------------
     raw = make_scene(N_GAUSSIANS, seed=0, extent=3.0)
@@ -1413,21 +1476,23 @@ def main() -> int:
         args = (geom_p, cols_p, binned.inst_gid, binned.tile_starts,
                 binned.tile_counts, bg, tx, ty, cfg.tile_h, cfg.tile_w)
         out_k = kernels.blend_forward(*args)
+        if not torch.equal(out_k, kernels.blend_forward(*args)):  # one writer per pixel
+            fail(f"K5 C={c}: two launches differ")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out_p, walked, blended = kernels.blend_forward_plain(*args, return_pairs=True)
+        out_p, walked, blended, near = kernels.blend_forward_plain(*args, return_pairs=True)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         cmp = flip_tolerant_compare(out_k, out_p, f"K5 blend_forward C={c} ({label})")
         nbytes = (geom_p.numel() + cols_p.numel() + binned.inst_gid.numel()
                   + 2 * binned.tile_starts.numel() + bg.numel() + out_k.numel()) * 4
-        ops = 16 * walked + (4 + 2 * c) * blended
+        ops = blend_ops(near, blended, 4 + 2 * c)
         k5_fn = lambda: kernels.blend_forward(*args)  # noqa: E731
         k5[label] = dict(
             channels=c, ms=device_ms(k5_fn), events_ms=cuda_ms(k5_fn, 20),
-            plain_ms=plain_ms, pairs_walked=walked, pairs_blended=blended,
+            plain_ms=plain_ms, pairs_walked=walked, pairs_blended=blended, pairs_near=near,
             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / FP32_OPS_PER_S * 1e3,
-            **cmp,
+            bit_identical=True, **cmp,
         )
         print(f"# K5 {label}: {k5[label]}", flush=True)
     del out_k, out_p
@@ -1543,12 +1608,14 @@ def main() -> int:
     del serve_k5, cols_f
 
     # -- 10-13. RGB pretraining, K8 ---------------------------------------------
-    k8, k3_rgb = rgb_phase(dev, gpu)
+    k8, k3_rgb, k1_rgb = rgb_phase(dev, gpu)
     rgb_kernels = [k8]
     for r in k3_rgb.values():  # two launches a step: C = 3 and C = 8
         r["launches"] = k8["rgb_launches"]["sorted_segment_sum"] // 2
     k3 = next(r for r in train_kernels if r["id"] == "K3")
     k3["by_width"] = {"GAD C=16": {k: k3[k] for k in k3_rgb["RGB C=3"]}, **k3_rgb}
+    k1 = next(r for r in train_kernels if r["id"] == "K1")
+    k1["by_width"] = {"GAD C=16": {k: k1[k] for k in k1_rgb}, "RGB C=3": k1_rgb}
 
     # -- 14. report --------------------------------------------------------------
     f16 = k5["features"]
@@ -1586,6 +1653,7 @@ def main() -> int:
                     "ms": v["ms"], "events_ms": v["events_ms"], "plain_ms": v["plain_ms"],
                     "bound_ms": max(v["bytes_ms"], v["ops_ms"]),
                     "pairs_walked": v["pairs_walked"], "pairs_blended": v["pairs_blended"],
+                    "pairs_near": v["pairs_near"],
                     "max_abs_err": v["max_abs_err"], "mean_abs_err": v["mean_abs_err"],
                 }
                 for v in k5.values()

@@ -68,6 +68,45 @@ __device__ __forceinline__ bool surely_floored(float sigma, float op) {
   return sigma > kFarSigma && op <= 1.0f;
 }
 
+// The same test for a whole block of pixels at once: a box (x0, x1, y0,
+// y1) in pixel coordinates such that alpha_of_sigma(splat_sigma(...)) is 0
+// at every pixel centre outside it, for the geometry row g = [mx, my, ca,
+// cb, cc, op]. With S = ln(255 op) + 0.01, a computed sigma above S gives
+// op exp(-sigma) <= 0.99 / 255 (S <= 0: no pixel reaches the floor, the
+// box is empty). The computed sigma is within gamma K sigma of the exact
+// one (gamma = 1e-6 covers its ~5 roundings; K = 2 max(ca, cc) /
+// lambda_min, here bounded above with lambda_max <= max(ca, cc) + |cb|,
+// bounds the terms' absolute sum by K sigma), so every pixel outside the
+// ellipse sigma <= S' = S (1 + 3 gamma K) computes a sigma above S. The
+// box is that ellipse's bounding box, half-widths sqrt(2 S' cc / det) and
+// sqrt(2 S' ca / det) (det by Kahan's fma form, accurate where it
+// cancels), widened by 1e-5 of itself against this function's own float
+// roundings and by a pixel against those of the offsets. Where the bound
+// does not hold (op > 1 or NaN, a conic that is not positive definite,
+// K > 1e5) the box is everything. Inline float intrinsics only: no
+// subroutine call, so no spills around one.
+__device__ __forceinline__ float4 floored_outside(const float* g) {
+  const float kInf = __int_as_float(0x7f800000);
+  const float4 all = make_float4(-kInf, kInf, -kInf, kInf);
+  const float op = g[5];
+  if (!(op <= 1.0f)) return all;
+  const float s = op > 0.0f ? __fadd_rn(__logf(__fmul_rn(255.0f, op)), 0.01f) : -1.0f;
+  if (s <= 0.0f) return make_float4(kInf, -kInf, kInf, -kInf);  // floored everywhere
+  const float a = g[2], b = g[3], c = g[4];
+  const float bb = __fmul_rn(b, b);
+  const float det = __fadd_rn(__fmaf_rn(a, c, -bb), __fmaf_rn(-b, b, bb));
+  if (!(a > 0.0f && c > 0.0f && det > 0.0f)) return all;
+  const float m = fmaxf(a, c);
+  const float k = __fdividef(2.0f * m * (m + fabsf(b)), det);
+  constexpr float kGamma = 1e-6f;
+  if (!(k <= 1e5f)) return all;
+  const float s2 = __fdividef(2.0f * s * (1.0f + 3.0f * kGamma * k), det);
+  const float qx = s2 * c, qy = s2 * a;  // NaN where they underflow: no skip
+  const float hx = qx * rsqrtf(qx) * 1.00001f + 1.0f;
+  const float hy = qy * rsqrtf(qy) * 1.00001f + 1.0f;
+  return make_float4(g[0] - hx, g[0] + hx, g[1] - hy, g[1] + hy);
+}
+
 // transmittance after a splat of the given alpha
 __device__ __forceinline__ float next_transmittance(float T, float alpha) {
   return __fmul_rn(T, __fsub_rn(1.0f, alpha));

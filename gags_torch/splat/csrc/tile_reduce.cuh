@@ -1,6 +1,8 @@
 // tile_reduce.cuh: the layout and the reductions that the two backward
 // blends share (blend_backward.cu: K2; blend_backward_full.cu: K8), beside
-// blend_common.cuh's per-pair arithmetic.
+// blend_common.cuh's per-pair arithmetic. The forward blend
+// (blend_forward.cu: K1 and K5) takes the layout (`tile_pixel`) and the
+// gathers (`stage_rows`) without the cluster and the reductions.
 //
 // A tile is one thread-block cluster (sm_90) of `bands` blocks of at most
 // kBandThreads threads; each thread owns PPT pixels and each warp a

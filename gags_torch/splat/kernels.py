@@ -282,9 +282,12 @@ def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
     tiles and pixels, taking the instance index k of every range in lock
     step. Yields a `_WalkStep` per k.
 
-    `pairs`, a list [walked, blended], accumulates the (pixel, instance)
-    pairs this data needs evaluated (each pixel up to the splat that ends
-    it) and the pairs blended: the work a roofline bound counts."""
+    `pairs`, a list [walked, blended, near], accumulates the (pixel,
+    instance) pairs this data walks (each pixel up to the splat that ends
+    it), the pairs blended, and the walked pairs near enough to the splat
+    that no exact test short of alpha itself excludes them (sigma <=
+    ln(255 op) + 0.01, the ellipse of blend_common.cuh's floored_outside):
+    the work a roofline bound counts."""
     num_tiles = tiles_x * tiles_y
     dev = geom.device
     px, py = _pixel_centres(num_tiles, tiles_x, tile_h, tile_w, dev)
@@ -311,8 +314,10 @@ def _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x, tiles_y,
         use = (alpha > 0.0) & ~done & ~kill
         w = torch.where(use, alpha * T, zero)
         if pairs is not None:  # device sums: no host sync inside the walk
-            pairs[0] = pairs[0] + (inr[:, None] & ~done).sum()
+            walked = inr[:, None] & ~done
+            pairs[0] = pairs[0] + walked.sum()
             pairs[1] = pairs[1] + use.sum()
+            pairs[2] = pairs[2] + (walked & (sigma <= torch.log(255.0 * op) + 0.01)).sum()
         t_before = T
         T = torch.where(use, next_t, T)
         done |= kill
@@ -350,8 +355,8 @@ def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
     `blend_bf16` rounds the colours and every blend weight to bf16 before
     the multiply-add (f32 products and sums); `exit_stats` also returns
     the (T, 8, 128) early-exit counters; `block_exit` changes nothing.
-    Returns out, then stats with exit_stats, then the pairs walked and
-    blended (ints, see `_walk_ranges`) with return_pairs."""
+    Returns out, then stats with exit_stats, then the pairs walked,
+    blended and near (ints, see `_walk_ranges`) with return_pairs."""
     del block_exit  # bit-identical by construction
     if fast_color_rows or blend_bf16:
         colors = colors.to(torch.bfloat16).to(torch.float32)
@@ -362,7 +367,7 @@ def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
     T = torch.ones(acc.shape[:2], dtype=torch.float32, device=dev)
     stop = torch.full(T.shape, -1, dtype=torch.int64, device=dev)  # range index
     t_stop = torch.ones_like(T)  # the naive T just after the stopping splat
-    pairs = [0, 0]
+    pairs = [0, 0, 0]
     for k, s in enumerate(_walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
                                        tiles_y, tile_h, tile_w,
                                        pairs if return_pairs else None)):
@@ -383,7 +388,7 @@ def blend_forward_plain(geom, colors, inst_gid, tile_starts, tile_counts, bg,
         ret.append(_exit_stats_block(tile_starts, tile_counts, chunk1.amax(1),
                                      log2t.amax(1), chunk))
     if return_pairs:
-        ret += [int(pairs[0]), int(pairs[1])]
+        ret += [int(x) for x in pairs]
     return ret[0] if len(ret) == 1 else tuple(ret)
 
 
@@ -415,9 +420,35 @@ def _check_tile(tile_h, tile_w, what):
 
 def _tile_order(tile_counts: torch.Tensor) -> torch.Tensor:
     """The tiles by decreasing instance count, ties in tile order: the
-    backward blends start the longest walks first and fill in behind them
-    with the short ones."""
+    blends start the longest walks first and fill in behind them with the
+    short ones."""
     return torch.argsort(tile_counts, descending=True, stable=True).to(torch.int32)
+
+
+class TileOrder:
+    """The order in which the blends start the tiles of one binning,
+    `_tile_order(tile_counts)`, made once and handed to the forward and
+    the backward blend (the rasterizer does). Opaque: the kernels index
+    with it, and an order made from counts is a permutation of the tiles."""
+
+    __slots__ = ("_tiles",)
+
+    def __init__(self, tile_counts: torch.Tensor):
+        self._tiles = _tile_order(tile_counts)
+
+
+def _order_arg(tile_order, tile_counts, num_tiles) -> torch.Tensor:
+    """The order to start the tiles in: the caller's TileOrder of these
+    tiles, else sorted here."""
+    if tile_order is None:
+        return _tile_order(tile_counts)
+    if not isinstance(tile_order, TileOrder):
+        raise TypeError(f"tile_order: expected a TileOrder, got {type(tile_order).__name__}")
+    order = tile_order._tiles
+    if order.shape[0] != num_tiles or order.device != tile_counts.device:
+        raise ValueError(f"tile_order: an order of {order.shape[0]} tiles on {order.device}, "
+                         f"expected {num_tiles} on {tile_counts.device}")
+    return order
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -435,7 +466,8 @@ def _check_ranges(tile_starts, tile_counts, num_tiles, dev):
 
 def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
                           tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w, *,
-                          bf16_colors=False, bf16_weights=False, exit_stats=False, chunk=128):
+                          tile_order=None, bf16_colors=False, bf16_weights=False,
+                          exit_stats=False, chunk=128):
     dev = geom.device
     num_tiles = tiles_x * tiles_y
     _check_tensor("geom", geom, torch.float32, dev, ndim=2)
@@ -454,8 +486,13 @@ def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
         colors = torch.nn.functional.pad(colors, (0, cp - c))
         bg = torch.nn.functional.pad(bg, (0, cp - c)).contiguous()
     if bf16_colors:  # round to nearest even, as astype(jnp.bfloat16)
-        colors = colors.to(torch.bfloat16)
-    colors = colors.contiguous()
+        # rows padded to a multiple of 8 values (16 bytes), which the kernel
+        # gathers with cp.async and blends the first cp of
+        row = -(-cp // 8) * 8
+        colors = torch.nn.functional.pad(colors, (0, row - cp)).to(torch.bfloat16)
+    # the kernel gathers both tables' rows in 16-byte units where they allow
+    geom, colors = _aligned16(geom), _aligned16(colors.contiguous())
+    order = _order_arg(tile_order, tile_counts, num_tiles)
     npix = tile_h * tile_w
     out = torch.empty((num_tiles, npix, cp + 1), dtype=torch.float32, device=dev)
     common = (_ptr(geom), _ptr(colors), _ptr(inst_gid), _ptr(tile_starts),
@@ -468,13 +505,13 @@ def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
             stats = torch.empty((num_tiles, 2), dtype=torch.int32, device=dev)
             stats[:, 0] = 0
             stats[:, 1] = torch.iinfo(torch.int32).min
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
         err = fn(*common, None if stats is None else _ptr(stats), num_tiles, tiles_x,
                  tile_h, tile_w, cp, int(bf16_colors), int(bf16_weights), chunk,
-                 _stream(geom))
+                 _stream(geom), _ptr(order))
     else:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        err = fn(*common, num_tiles, tiles_x, tile_h, tile_w, cp, _stream(geom))
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+        err = fn(*common, num_tiles, tiles_x, tile_h, tile_w, cp, _stream(geom), _ptr(order))
     _kernels.check(lib, err, key)
     launch_counts[key] += 1
     if cp != c:
@@ -488,7 +525,8 @@ def _launch_blend_forward(entry, key, geom, colors, inst_gid, tile_starts,
 
 def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
                   tiles_x, tiles_y, tile_h, tile_w, *, fast_color_rows=False,
-                  blend_bf16=False, exit_stats=False, block_exit=False, chunk=128):
+                  blend_bf16=False, exit_stats=False, block_exit=False, chunk=128,
+                  tile_order=None):
     """K5: front-to-back composite over unaligned per-tile ranges.
 
     geom (R, 8) f32 and colors (R, C) f32 are rank-permuted tables with a
@@ -502,6 +540,9 @@ def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
     stats the (T, 8, 128) f32 early-exit counters (see
     `_exit_stats_block`; chunks of `chunk` instances); `block_exit` is
     accepted and changes nothing (the kernel retires per pixel and block).
+    `tile_order`, a `TileOrder` of these tile_counts, is the order in
+    which the kernel starts the tiles, sorted here when not given; the
+    plain version ignores it.
     """
     if not _dispatch(geom):
         return blend_forward_plain(geom, colors, inst_gid, tile_starts,
@@ -512,8 +553,8 @@ def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
     return _launch_blend_forward(
         "gags_blend_forward", "blend_forward", geom, colors, inst_gid,
         tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w,
-        bf16_colors=fast_color_rows or blend_bf16, bf16_weights=blend_bf16,
-        exit_stats=exit_stats, chunk=chunk)
+        tile_order=tile_order, bf16_colors=fast_color_rows or blend_bf16,
+        bf16_weights=blend_bf16, exit_stats=exit_stats, chunk=chunk)
 
 
 # --------------------------------------------------------------------------
@@ -522,18 +563,20 @@ def blend_forward(geom, colors, inst_gid, tile_starts, tile_counts, bg,
 
 
 def blend_forward_aligned(geom, colors, inst_gid, tile_starts, tile_counts, bg,
-                          tiles_x, tiles_y, tile_h, tile_w):
+                          tiles_x, tiles_y, tile_h, tile_w, *, tile_order=None):
     """K1: the composite of `blend_forward` over an ALIGNED binning (the
     training layout: chunk-aligned starts, tile_counts = the real
     instances of each range, zero-opacity dummies after them). Same
-    arguments and output; its plain version is `blend_forward_plain`."""
+    arguments (`tile_order` as there) and output; its plain version is
+    `blend_forward_plain`."""
     if not _dispatch(geom):
         return blend_forward_plain(geom, colors, inst_gid, tile_starts,
                                    tile_counts, bg, tiles_x, tiles_y, tile_h,
                                    tile_w)
     return _launch_blend_forward(
         "gags_blend_forward_aligned", "blend_forward_aligned", geom, colors,
-        inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w)
+        inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y, tile_h, tile_w,
+        tile_order=tile_order)
 
 
 # --------------------------------------------------------------------------
@@ -545,20 +588,20 @@ def blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
                          tiles_x, tiles_y, tile_h, tile_w, return_pairs=False):
     """The colour VJP of `blend_backward`: grad[j] = sum_p w[p, j] g[p] for
     every instance slot j of a range, zero elsewhere. With return_pairs,
-    also returns the pairs walked and blended (see `_walk_ranges`)."""
+    also returns the pairs walked, blended and near (see `_walk_ranges`)."""
     grad = torch.zeros((inst_gid.shape[0], g.shape[-1]), dtype=torch.float32,
                        device=geom.device)
-    pairs = [0, 0]
+    pairs = [0, 0, 0]
     for s in _walk_ranges(geom, inst_gid, tile_starts, tile_counts, tiles_x,
                           tiles_y, tile_h, tile_w, pairs if return_pairs else None):
         grad[s.pos[s.inr]] = torch.einsum("tp,tpc->tc", s.w, g)[s.inr]
     if return_pairs:
-        return grad, int(pairs[0]), int(pairs[1])
+        return (grad, *(int(x) for x in pairs))
     return grad
 
 
 def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
-                   tiles_x, tiles_y, tile_h, tile_w):
+                   tiles_x, tiles_y, tile_h, tile_w, *, tile_order=None):
     """K2: colour gradient of every instance slot of an aligned binning.
 
     geom (R, 8) f32 is the rank-permuted geometry table with its zero
@@ -566,7 +609,8 @@ def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
     g (T, P, C) f32 the cotangent of the tile image's C channels. Returns
     (M, C) f32: grad[j] = sum_p w[p, j] g[p], the blend weights recomputed
     as the forward computed them; rows outside every range are zero. Two
-    launches give the same bits (each row has one writer).
+    launches give the same bits (each row has one writer). `tile_order`
+    as `blend_forward`'s: the forward's order, or sorted here.
     """
     if not _dispatch(geom):
         return blend_backward_plain(geom, inst_gid, tile_starts, tile_counts, g,
@@ -591,7 +635,7 @@ def blend_backward(geom, inst_gid, tile_starts, tile_counts, g,
     geom = _aligned16(geom)
     # the kernel stores the rows of the instances it walks; the others stay 0
     grad = torch.zeros((inst_gid.shape[0], cp), dtype=torch.float32, device=dev)
-    order = _tile_order(tile_counts)
+    order = _order_arg(tile_order, tile_counts, num_tiles)
     fn = lib.gags_blend_backward
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -621,7 +665,7 @@ def blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts, 
     dL/dsigma = -alpha dL/dalpha and dL/dopac = dL/dalpha exp(-sigma) where
     the splat blends unclamped (a splat clamped at 0.999 keeps only its
     colour gradient w g_img). With return_pairs, also returns the pairs one
-    walk evaluates and blends (see `_walk_ranges`)."""
+    walk walks, blends and finds near (see `_walk_ranges`)."""
     m, c = inst_gid.shape[0], colors.shape[1]
     dev = geom.device
     ga = g_alpha.reshape(g_img.shape[:2])
@@ -639,7 +683,7 @@ def blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts, 
     grad_geom = torch.zeros((m, 8), dtype=torch.float32, device=dev)
     prefix = torch.zeros_like(total)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    pairs = [0, 0]
+    pairs = [0, 0, 0]
     for s in _walk_ranges(*walk_args, pairs if return_pairs else None):
         u = u_of(s)
         prefix = prefix + u * s.w
@@ -661,12 +705,12 @@ def blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts, 
         grad_geom[s.pos[s.inr], :6] = geo[s.inr]
         grad_col[s.pos[s.inr]] = torch.einsum("tp,tpc->tc", s.w, g_img)[s.inr]
     if return_pairs:
-        return grad_col, grad_geom, int(pairs[0]), int(pairs[1])
+        return (grad_col, grad_geom, *(int(x) for x in pairs))
     return grad_col, grad_geom
 
 
 def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img, g_alpha,
-                        tiles_x, tiles_y, tile_h, tile_w):
+                        tiles_x, tiles_y, tile_h, tile_w, *, tile_order=None):
     """K8: colour and screen-space geometry gradients of every instance
     slot of an aligned binning (the RGB pretraining backward).
 
@@ -679,7 +723,8 @@ def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
     latter [mx, my, ca, cb, cc, opac, 0, 0]; rows outside every range and
     behind a pixel's stop are zero. Two launches give the same bits (each
     row has one writer). (The Pallas kernel's (C, M) and (8, M) lane-major
-    outputs are a TPU layout; these rows feed K3 directly.)
+    outputs are a TPU layout; these rows feed K3 directly.) `tile_order`
+    as `blend_forward`'s: the forward's order, or sorted here.
     """
     if not _dispatch(geom):
         return blend_backward_full_plain(geom, colors, inst_gid, tile_starts, tile_counts,
@@ -711,7 +756,7 @@ def blend_backward_full(geom, colors, inst_gid, tile_starts, tile_counts, g_img,
     # the kernel stores the rows of the instances it walks; the others stay 0
     grad_col = torch.zeros((m, cp), dtype=torch.float32, device=dev)
     grad_geom = torch.zeros((m, 8), dtype=torch.float32, device=dev)
-    order = _tile_order(tile_counts)
+    order = _order_arg(tile_order, tile_counts, num_tiles)
     fn = lib.gags_blend_backward_full
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -181,18 +181,19 @@ def permute_rows(x, perm, inv_perm):
     return _PermuteRows.apply(x, perm, inv_perm)
 
 
-def _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y,
-                   cfg):
+def _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, tile_order, bg, tiles_x,
+                   tiles_y, cfg):
     """The forward of both blends: K1 on an aligned binning, K5 on an
-    unaligned one. Returns the colour table with its zero sentinel row and
-    the (T, P, C+1) tile image + alpha."""
+    unaligned one, starting the tiles in `tile_order`. Returns the colour
+    table with its zero sentinel row and the (T, P, C+1) tile image +
+    alpha."""
     c = colors.shape[1]
     table = torch.cat([colors, colors.new_zeros((1, c))]).contiguous()
     args = (geom, table, inst_gid, tile_starts, tile_counts, bg, tiles_x, tiles_y,
             cfg.tile_h, cfg.tile_w)
     if cfg.aligned:
-        return table, kernels.blend_forward_aligned(*args)
-    return table, kernels.blend_forward(*args, **_k5_options(cfg))
+        return table, kernels.blend_forward_aligned(*args, tile_order=tile_order)
+    return table, kernels.blend_forward(*args, tile_order=tile_order, **_k5_options(cfg))
 
 
 def _k5_options(cfg: RasterizeConfig) -> dict:
@@ -214,15 +215,17 @@ class _Blend(torch.autograd.Function):
 
     Forward: K1 on an aligned binning, K5 on an unaligned one. Backward:
     K2 gives each instance slot its colour gradient, K3 sums the slots of
-    each rank over the binning's ReductionLayout. Returns the tile image
-    (T, P, C) and alpha (T, P, 1).
+    each rank over the binning's ReductionLayout. The tiles start in one
+    order (a `kernels.TileOrder`, made once here) in the forward and the
+    backward. Returns the tile image (T, P, C) and alpha (T, P, 1).
     """
 
     @staticmethod
     def forward(ctx, colors, geom, inst_gid, tile_starts, tile_counts,
                 red_slot, red_rank, red_block, bg, tiles_x, tiles_y, cfg):
         n, c = colors.shape
-        _, out = _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, bg,
+        ctx.order = order = kernels.TileOrder(tile_counts)
+        _, out = _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, order, bg,
                                 tiles_x, tiles_y, cfg)
         ctx.save_for_backward(geom, inst_gid, tile_starts, tile_counts,
                               red_slot, red_rank, red_block)
@@ -241,7 +244,7 @@ class _Blend(torch.autograd.Function):
         tiles_x, tiles_y = ctx.grid
         grad_inst = kernels.blend_backward(
             geom, inst_gid, starts, counts, g_img.contiguous(),
-            tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
+            tiles_x, tiles_y, cfg.tile_h, cfg.tile_w, tile_order=ctx.order)
         # the n real ranks only: the sentinel rank n (dummies and fillers,
         # zero rows) is never summed
         grad = kernels.sorted_segment_sum(
@@ -257,15 +260,17 @@ class _BlendFull(torch.autograd.Function):
     bg against T_fin: image = acc + T_fin bg, alpha = 1 - T_fin), then K8
     gives each instance slot its colour and geometry gradients and K3 sums
     each over the ReductionLayout for the n real ranks. The sentinel row's
-    gradient is zero (its table row is a constant). Returns the tile image
-    (T, P, C) and alpha (T, P, 1)."""
+    gradient is zero (its table row is a constant). The tiles start in one
+    order in the forward and the backward, as in `_Blend`. Returns the tile
+    image (T, P, C) and alpha (T, P, 1)."""
 
     @staticmethod
     def forward(ctx, colors, geom, inst_gid, tile_starts, tile_counts,
                 red_slot, red_rank, red_block, bg, tiles_x, tiles_y, cfg):
         c = colors.shape[1]
         geom = geom.contiguous()
-        table, out = _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, bg,
+        ctx.order = order = kernels.TileOrder(tile_counts)
+        table, out = _blend_forward(colors, geom, inst_gid, tile_starts, tile_counts, order, bg,
                                     tiles_x, tiles_y, cfg)
         ctx.save_for_backward(table, geom, inst_gid, tile_starts, tile_counts,
                               red_slot, red_rank, red_block, bg)
@@ -284,7 +289,7 @@ class _BlendFull(torch.autograd.Function):
         g_alpha = g_alpha - torch.sum(g_img * bg, dim=-1, keepdim=True)
         grad_inst_col, grad_inst_geom = kernels.blend_backward_full(
             geom, table, inst_gid, starts, counts, g_img.contiguous(), g_alpha.contiguous(),
-            tiles_x, tiles_y, cfg.tile_h, cfg.tile_w)
+            tiles_x, tiles_y, cfg.tile_h, cfg.tile_w, tile_order=ctx.order)
         grad_colors = kernels.sorted_segment_sum(
             grad_inst_col, red_slot, red_rank, red_block, num_ranks=n)
         grad_geom = kernels.sorted_segment_sum(

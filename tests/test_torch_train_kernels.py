@@ -199,3 +199,6 @@ def test_library_path_follows_included_headers(tmp_path):
     assert _kernels._lib_path(src) not in (third, second, first)
     assert [h.name for h in _kernels._local_headers(kernels.BLEND_BACKWARD_SRC)] == [
         "blend_common.cuh", "tile_reduce.cuh"]
+    # the forward blend shares both: editing either rebuilds K1/K5 too
+    assert [h.name for h in _kernels._local_headers(kernels.BLEND_FORWARD_SRC)] == [
+        "blend_common.cuh", "tile_reduce.cuh"]

@@ -9,8 +9,10 @@ Phases, each of which fails the run:
      (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
-     torch.searchsorted (the library yardstick), by CUDA events around
-     back-to-back calls and as device time per call (torch.profiler);
+     torch.searchsorted (the library yardstick), as device time per call
+     (torch.profiler) and by CUDA events around back-to-back calls; the
+     device time of an empty launch (torch.cuda._sleep(0)), the launch
+     floor beside K6's bound;
   4. K5 blend_forward vs its plain version on the full 1280x720 frame, for
      the 16 feature channels and the 3 SH colour channels: atol 2e-5 /
      rtol 1e-4 with the NUMERICS.md allowance for isolated threshold flips
@@ -98,12 +100,14 @@ Phases, each of which fails the run:
      and events times, its bound from the plain version's pair counts and
      its launches in the 300 steps; then
      K3 at the RGB widths on K8's colour (C = 3) and geometry (C = 8) rows
-     over camera 0's ReductionLayout, checked and timed as in phase 8;
+     over camera 0's ReductionLayout, checked and timed as in phase 8; K6
+     on the step's aligned binning of camera 0 (every slot of the state,
+     the parked ones an empty tail), checked and timed as in phase 3;
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
      0: its PSNR against the ground truth must exceed the seed cloud's;
  14. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
-     and 8), then the card's
+     and 8; K6 by shape: serve, RGB aligned), then the card's
      name and power limit, then the final {"ok": true, ...}.
 """
 
@@ -270,16 +274,16 @@ def count_syncs(fn) -> dict:
 
 def ptxas_summary(log: str) -> list[str]:
     """'<kernel><T,...>: N registers, S bytes spill stores, L bytes spill
-    loads' per entry function, T,... its integer template arguments (the
-    blends' channel count and pixels a thread, K3's vector width, K4's
-    strip length)."""
+    loads' per entry function, T,... its integer and bool template
+    arguments (the blends' channel count and pixels a thread, K3's vector
+    width, K4's strip length, K7's cull)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = re.search(r"([a-z][a-z_]*_kernel)", mangled).group(1)
             args = re.search(name + r"I(.*?)EEv", mangled)
-            ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            ints = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
             name += f"<{','.join(ints)}>" if ints else ""
             name += "[bf16]" if "bfloat16" in line else ""
         elif "spill stores" in line:
@@ -340,6 +344,38 @@ def with_bound(r: dict) -> dict:
     r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"])
     r["bound_by"] = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
     return r
+
+
+def k6_check(kernels, offsets: torch.Tensor, slots: int, what: str) -> dict:
+    """K6 against its plain version on real rank offsets (exact), with the
+    kernel's, the plain version's and torch.searchsorted's (the library
+    yardstick) device time per call and events time, and its bound: each
+    offset read once, each gid written once; operations, a merge of the
+    sorted slot ids with the offsets, one compare each."""
+    gid_k = kernels.expand_gid(offsets, slots)
+    gid_p = kernels.expand_gid_plain(offsets, slots)
+    torch.cuda.synchronize()
+    if not torch.equal(gid_k, gid_p):
+        fail(f"K6 expand_gid {what}: differs from its plain version at "
+             f"{int((gid_k != gid_p).sum())} of {slots} slots")
+    idx = torch.arange(slots, dtype=torch.int32, device=offsets.device)
+    k6 = lambda: kernels.expand_gid(offsets, slots)  # noqa: E731
+    plain = lambda: kernels.expand_gid_plain(offsets, slots)  # noqa: E731
+    library = lambda: torch.searchsorted(offsets, idx, right=True)  # noqa: E731
+    n = offsets.numel()
+    r = with_bound(dict(
+        slots=slots, ranks=n, ranks_owning_slots=int((torch.diff(offsets) > 0).sum()) + 1,
+        ms=device_ms(k6), events_ms=cuda_ms(k6, 50),
+        plain_ms=device_ms(plain), plain_events_ms=cuda_ms(plain, 50),
+        library_ms=device_ms(library), library_events_ms=cuda_ms(library, 50),
+        bytes_ms=(n + slots) * 4 / HBM_BYTES_PER_S * 1e3,
+        ops_ms=(n + slots) / FP32_OPS_PER_S * 1e3, timing=K6_TIMING))
+    print(f"# K6 expand_gid {what}: {slots} slots over {n} ranks, exact; {r}", flush=True)
+    return r
+
+
+K6_TIMING = ("ms, plain_ms, library_ms: device time per call (torch.profiler); "
+             "*events_ms: back-to-back calls between CUDA events")
 
 
 def k3_check(kernels, rows: torch.Tensor, b, num_ranks: int, what: str) -> dict:
@@ -708,6 +744,8 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
     return report, extra
 
 
+K7_KEY_OPS = 20
+K7_CULL_OPS = 72
 K7_SHAPES = (("1280x720/250k", 1280, 720, 250_000), ("1920x1080/1M", 1920, 1080, 1_000_000))
 STATS_MOVED_TILES = 2  # tiles whose stop may move at a threshold flip (of 920)
 SAT_GAUSSIANS = 16_000  # the saturated frame: tens of its 920 tiles stop early
@@ -780,7 +818,11 @@ def k7_phase(dev: torch.device, gpu: str) -> dict:
                                                  b.tile_starts, b.tile_counts,
                                                  torch.zeros(16, device=dev), tx, ty, th, tw)
             nbytes = n * (8 + (24 if cull else 0)) + 4 + mk * 8 + (mk // 1024) * 4
-            ops = mk * (4 * int(n).bit_length() + 20 + (70 if cull else 0))
+            # the function's own work, whatever finds the owners: per slot
+            # the rect unpack, the floor division, the tile id and the key
+            # (~20 integer operations); with the cull, per slot its 72 float
+            # operations (the four divisions counted as one each)
+            ops = mk * (K7_KEY_OPS + (K7_CULL_OPS if cull else 0))
             r = dict(
                 instances=int(b.num_valid), slots=mk, ranks=n,
                 # device time per launch (torch.profiler); events_ms, back to
@@ -1144,8 +1186,8 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
     """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
     the step's times and profile, K8 against its plain version on the
     trained state with the loss's real cotangents, and the snapshot PLY
-    rendered. Returns K8's report entry, K3's at the RGB widths and K1's
-    at the RGB width."""
+    rendered. Returns K8's report entry, K3's at the RGB widths, K1's
+    at the RGB width and K6's on the step's aligned binning."""
     import dataclasses
 
     from gags_torch.cli.train_rgb import RunConfig, run
@@ -1153,7 +1195,8 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
     from gags_torch.rgb.train import RgbConfig, make_rgb_step
     from gags_torch.scene.dataset import camera_from_info, detect_and_load
     from gags_torch.scene.gaussian_data import GaussianScene
-    from gags_torch.splat import kernels
+    from gags_torch.splat import kernels, tiles
+    from gags_torch.splat.projection import project_gaussians
     from gags_torch.splat.rasterizer import _prepare, order_ext, rasterize
     from gags_torch.splat.render import render
     from gags_torch.utils.image import load_rgb
@@ -1244,6 +1287,19 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                     break
             else:
                 fail(f"camera 0 binning overflow {int(b.overflow)} at budget factor {factor}")
+            # K6 where it runs most: the step's aligned binning of camera 0,
+            # every slot of the state (alive first, the parked ones an empty
+            # tail), m_real slots at the step's budget
+            pj = project_gaussians(*geo[:3], vm, K, w, h,
+                                   opacities=geo[3] if cfg.raster.opacity_extents else None)
+            _, _, off_rgb, _ = tiles.depth_ranks(pj.means2d, pj.radii_x, pj.depths,
+                                                 cfg.raster.tile_w, cfg.raster.tile_h, tx, ty,
+                                                 radii_y=pj.radii_y)
+            mk_rgb = cfg.raster.instance_budget(geo[0].shape[0])
+            mk_rgb = -(-mk_rgb // cfg.raster.chunk) * cfg.raster.chunk
+            k6_rgb = k6_check(kernels, off_rgb, mk_rgb, "RGB aligned")
+            k6_rgb["launches"] = launches["expand_gid"]
+            del pj, off_rgb
         colors = sh_colors(3, state.sh, p["means"], -(vm[:3, :3].T @ vm[:3, 3])).detach()
         leaf = colors.clone().requires_grad_(True)
         tap = torch.zeros((state.capacity, 2), device=dev, requires_grad=True)
@@ -1375,7 +1431,7 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                  f"cloud's {db['seed']} dB")
         print(f"# snapshot PLY: {scene.num_gaussians} Gaussians, camera 0 PSNR "
               f"{db['snapshot']:.3f} dB (seed cloud {db['seed']:.3f} dB)", flush=True)
-    return k8, k3_rgb, k1_rgb
+    return k8, k3_rgb, k1_rgb, k6_rgb
 
 
 def main() -> int:
@@ -1440,29 +1496,11 @@ def main() -> int:
         radii_y=proj.radii_y,
     )
     slots = tiles.expansion_slots(cfg.instance_budget(N_GAUSSIANS), cfg.chunk)
-    gid_k = kernels.expand_gid(offsets, slots)
-    gid_p = kernels.expand_gid_plain(offsets, slots)
-    torch.cuda.synchronize()
-    if not torch.equal(gid_k, gid_p):
-        fail(f"expand_gid differs from its plain version at "
-             f"{int((gid_k != gid_p).sum())} of {slots} slots")
-    idx = torch.arange(slots, dtype=torch.int32, device=dev)
-    k6 = dict(
-        ms=cuda_ms(lambda: kernels.expand_gid(offsets, slots), 50),
-        plain_ms=cuda_ms(lambda: kernels.expand_gid_plain(offsets, slots), 50),
-        library_ms=cuda_ms(lambda: torch.searchsorted(offsets, idx, right=True), 50),
-        # the same three as device time per call (torch.profiler): the events
-        # above time back-to-back launches, which a few-microsecond kernel
-        # behind a Python wrapper leaves host-bound
-        device_ms=device_ms(lambda: kernels.expand_gid(offsets, slots)),
-        plain_device_ms=device_ms(lambda: kernels.expand_gid_plain(offsets, slots)),
-        library_device_ms=device_ms(lambda: torch.searchsorted(offsets, idx, right=True)),
-    )
-    k6_bytes = offsets.numel() * 4 + slots * 4
-    k6_ops = slots * (int(offsets.numel()).bit_length() * 4 + 4)
-    k6["bytes_ms"] = k6_bytes / HBM_BYTES_PER_S * 1e3
-    k6["ops_ms"] = k6_ops / FP32_OPS_PER_S * 1e3
-    print(f"# K6 expand_gid: {slots} slots over {offsets.numel()} ranks, exact; {k6}", flush=True)
+    k6 = k6_check(kernels, offsets, slots, "serve")
+    # the launch floor beside K6's bound: an empty kernel (one thread reads
+    # the clock once), timed the same way
+    empty_launch_ms = device_ms(lambda: torch.cuda._sleep(0))
+    print(f"# empty launch: {empty_launch_ms:.5f} ms device time ({gpu})", flush=True)
 
     # -- 4. K5 -----------------------------------------------------------------
     perm = order_ext(binned.order.long())
@@ -1608,7 +1646,7 @@ def main() -> int:
     del serve_k5, cols_f
 
     # -- 10-13. RGB pretraining, K8 ---------------------------------------------
-    k8, k3_rgb, k1_rgb = rgb_phase(dev, gpu)
+    k8, k3_rgb, k1_rgb, k6_rgb = rgb_phase(dev, gpu)
     rgb_kernels = [k8]
     for r in k3_rgb.values():  # two launches a step: C = 3 and C = 8
         r["launches"] = k8["rgb_launches"]["sorted_segment_sum"] // 2
@@ -1631,11 +1669,10 @@ def main() -> int:
             "source": "gags_torch/splat/csrc/expand_gid.cu",
             "replaces": "gags_tpu/splat/pallas_kernel.py:1559",
             "launches": launches["expand_gid"], "check": "exact", "max_abs_err": 0.0,
-            "ms": k6["ms"], "plain_ms": k6["plain_ms"],
-            "bound_ms": max(k6["bytes_ms"], k6["ops_ms"]),
-            "bound_by": "bytes" if k6["bytes_ms"] >= k6["ops_ms"] else "operations",
-            "library_ms": k6["library_ms"], "slots": slots,
-            **{k: k6[k] for k in ("device_ms", "plain_device_ms", "library_device_ms")},
+            **{k: k6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                  "events_ms", "timing")},
+            "empty_launch_ms": empty_launch_ms,
+            "by_shape": {"serve": k6, "RGB aligned": k6_rgb},
         },
         {
             "name": "blend_forward", "id": "K5", "route": "cuda",

@@ -84,6 +84,12 @@ def _check_tensor(name, t, dtype, device, ndim=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels read it in 16-byte units)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _dispatch(t: torch.Tensor) -> bool:
     """True for the CUDA kernel, False for the plain version (CPU only)."""
     if t.device.type == "cuda":
@@ -115,6 +121,7 @@ def expand_gid(offsets: torch.Tensor, num_slots: int) -> torch.Tensor:
     n = offsets.shape[0]
     if n == 0:
         raise ValueError("expand_gid: empty offsets")
+    offsets = _aligned16(offsets)
     gid = torch.empty((num_slots,), dtype=torch.int32, device=offsets.device)
     lib = _kernels.load(EXPAND_GID_SRC)
     fn = lib.gags_expand_gid
@@ -206,12 +213,12 @@ def expand_keys_plain(offsets, packed_p, num_valid, num_slots, *, shift, tiles_x
 def expand_keys(offsets, packed_p, num_valid, num_slots, *, shift, tiles_x, tile_w, tile_h,
                 cull_p=None):
     """K7: the sort key of each of `num_slots` (a multiple of 1024) instance
-    slots in one pass: the owning rank (K6's search), the slot's tile, the
-    optional exact ellipse-tile cull, the key (tile << shift) | rank or
-    INT64_MAX. offsets and packed_p (n,) int32 and cull_p (n, 6) f32 in
-    depth-rank order, num_valid a 0-d int32 tensor (read on the device:
-    no host sync). Returns (keys (num_slots,) int64, valid counts
-    (num_slots / 1024,) int32)."""
+    slots in one pass: the owning rank (the owner search K6 shares), the
+    slot's tile, the optional exact ellipse-tile cull, the key (tile <<
+    shift) | rank or INT64_MAX. offsets and packed_p (n,) int32 and cull_p
+    (n, 6) f32 in depth-rank order, num_valid a 0-d int32 tensor (read on
+    the device: no host sync). Returns (keys (num_slots,) int64, valid
+    counts (num_slots / 1024,) int32)."""
     if num_slots % EXPAND_K:
         raise ValueError(f"expand_keys: {num_slots} slots, not a multiple of {EXPAND_K}")
     if not _dispatch(offsets):
@@ -229,6 +236,8 @@ def expand_keys(offsets, packed_p, num_valid, num_slots, *, shift, tiles_x, tile
         _check_tensor("cull_p", cull_p, torch.float32, dev, ndim=2)
         if cull_p.shape != (n, 6):
             raise ValueError(f"cull_p: expected ({n}, 6), got {tuple(cull_p.shape)}")
+    offsets, packed_p = _aligned16(offsets), _aligned16(packed_p)
+    cull_p = None if cull_p is None else _aligned16(cull_p)
     keys = torch.empty((num_slots,), dtype=torch.int64, device=dev)
     counts = torch.empty((num_slots // EXPAND_K,), dtype=torch.int32, device=dev)
     lib = _kernels.load(EXPAND_KEYS_SRC)
@@ -449,12 +458,6 @@ def _order_arg(tile_order, tile_counts, num_tiles) -> torch.Tensor:
         raise ValueError(f"tile_order: an order of {order.shape[0]} tiles on {order.device}, "
                          f"expected {num_tiles} on {tile_counts.device}")
     return order
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """t, or a copy of it where its data does not start on 16 bytes (the
-    kernels gather its rows with 16-byte cp.async)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_ranges(tile_starts, tile_counts, num_tiles, dev):

@@ -11,6 +11,7 @@ import torch
 from gags_torch.splat import kernels
 from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext, rasterize
 from gags_torch.utils.synthetic import make_camera, make_scene
+from owner_cases import OWNER_CASES, owner_offsets
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +33,51 @@ def test_expand_gid_matches_plain(dev):
     got = kernels.expand_gid(off, slots)
     want = kernels.expand_gid_plain(off, slots)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", OWNER_CASES)
+def test_expand_gid_edge_cases_match_plain(dev, kind):
+    """K6 bit for bit against its plain version across runs of empty
+    ranks longer than a tile, past the total, below offsets[0], for n = 1
+    and at slot counts that are no multiple of the tile or of 4."""
+    off_np, end = owner_offsets(kind)
+    off = torch.as_tensor(off_np, device=dev)
+    for num_slots in (end + 3001, end + 1, max(1, end // 2 + 3), 1024 * 3 + 5, 1):
+        got = kernels.expand_gid(off, num_slots)
+        want = kernels.expand_gid_plain(off, num_slots)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kind, num_slots, int((got != want).sum()))
+    if off.shape[0] > 1:  # a table that does not start on 16 bytes is copied, not misread
+        got = kernels.expand_gid(off[1:], end)
+        assert torch.equal(got, kernels.expand_gid_plain(off[1:], end))
+
+
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("kind", OWNER_CASES)
+def test_expand_keys_edge_cases_match_plain(dev, kind, cull):
+    """K7 bit for bit against its plain version on the same offsets, with
+    num_valid inside a chunk, past the total and 0."""
+    off_np, end = owner_offsets(kind)
+    n = off_np.shape[0]
+    rng = np.random.default_rng(7)
+    pw = rng.integers(1, 17, size=n)
+    x0, y0 = rng.integers(0, 100, size=n), rng.integers(0, 60, size=n)
+    packed = torch.as_tensor((x0 | (y0 << 10) | (pw << 20)).astype(np.int32), device=dev)
+    a, c = rng.uniform(0.002, 0.1, size=n), rng.uniform(0.002, 0.1, size=n)
+    mx, my = (x0 + pw / 2) * 16 + rng.normal(0, 20, n), (y0 + 2) * 16 + rng.normal(0, 20, n)
+    rows = np.stack([mx, my, a, rng.uniform(-0.9, 0.9, size=n) * np.sqrt(a * c), c,
+                     rng.uniform(0.0, 6.0, size=n)], 1).astype(np.float32)
+    cull_p = torch.as_tensor(rows, device=dev) if cull else None
+    off = torch.as_tensor(off_np, device=dev)
+    num_slots = -(-(end + 3000) // kernels.EXPAND_K) * kernels.EXPAND_K
+    kw = dict(shift=max(1, n.bit_length()), tiles_x=128, tile_w=16, tile_h=16, cull_p=cull_p)
+    for nv in (max(0, end - 517), end + 1500, 0):
+        args = (off, packed, torch.tensor(nv, dtype=torch.int32, device=dev), num_slots)
+        keys, counts = kernels.expand_keys(*args, **kw)
+        want_keys, want_counts = kernels.expand_keys_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(keys, want_keys), (kind, nv, int((keys != want_keys).sum()))
+        assert torch.equal(counts, want_counts), (kind, nv)
 
 
 def _inputs(dev, n, cdim, width=320, height=180, tile=(16, 16), saturated=False):

@@ -14,6 +14,7 @@ from gags_tpu.splat import tiles as jt
 from gags_tpu.splat.projection import project_gaussians as jproj
 from gags_torch.splat import kernels
 from gags_torch.splat import tiles as tt
+from owner_cases import OWNER_CASES, owner_offsets
 
 W, H, F = 64, 32, 40.0
 
@@ -48,6 +49,22 @@ def test_expand_gid_plain_matches_pallas(n, seed, n_empty):
     # and the definition: #{j : off[j] <= i} - 1
     i = np.arange(total)
     np.testing.assert_array_equal(got[:total], (offsets[None, :] <= i[:, None]).sum(1) - 1)
+
+
+@pytest.mark.parametrize("kind", OWNER_CASES)
+def test_expand_gid_plain_matches_definition(kind):
+    """gid[i] = clip(#{j : off[j] <= i} - 1, 0, n - 1), the count taken
+    from a histogram of the offsets (no search), on runs of empty ranks in
+    the middle and at the end, offsets[0] > 0, n = 1 and slots past the
+    total."""
+    offsets, end = owner_offsets(kind)
+    n = offsets.shape[0]
+    for num_slots in (end + 3001, max(1, end // 2 + 3)):
+        got = kernels.expand_gid_plain(torch.as_tensor(offsets), num_slots).numpy()
+        at_most = np.cumsum(np.bincount(offsets[offsets < num_slots], minlength=num_slots))
+        want = np.clip(at_most[:num_slots] - 1, 0, n - 1)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
 
 
 def test_expand_gid_wrapper_stays_plain_on_cpu():

@@ -105,15 +105,37 @@ Phases, each of which fails the run:
      the parked ones an empty tail), checked and timed as in phase 3;
  13. load the snapshot PLY with GaussianScene.from_ply and render camera
      0: its PSNR against the ground truth must exceed the seed cloud's;
- 14. print {"kernels": [...]} with times, bounds and launch counts of
+ 14. GAS (scripts/GAS.sh, stage 2) in the RGB phase's temporary directory:
+     (a) gags_torch.cli.render.run RGB+ED on its model dir (K5 and K6 launch
+     counts set to 0 just before and read just after); (b)
+     gags_torch.cli.depth_sample.run, each map held to the same functions
+     on CPU tensors bit for bit, with the count of projected (u, v) that
+     differ between card and CPU; (c) seeded random ViT-H SAM (f32, the
+     real file's 2.4 GiB) and OpenCLIP ViT-B/16 checkpoints in the upstream
+     layout, then gags_torch.cli.gas.run through its loaders on every
+     camera: at the CLI's thresholds, with --bf16 --encoder_batch 4, and
+     with the thresholds lowered as tests/test_gas_to_gad.py lowers them
+     (every camera must be written, f.shape[0] == s.max() + 1); the
+     encoder's ms and peak memory per image at f32 and at bf16 batch 4,
+     the decoder's ms per prompt batch, generate's wall against device
+     busy time (torch.profiler), CLIP's ms per crop batch, GAS seconds per
+     image; the card's f32 SAM against the CPU's at ViT-H widths cut to a
+     windowed and a global block (max relative error at most
+     GAS_REL_LIMIT); (d) GAS_GAD_STEPS GAD steps through
+     gags_torch.cli.train_gad.run on the RGB snapshot PLY and the GAS
+     output; (e) gags_torch.cli.encode_text.run with a small merge table,
+     its npz served by load_server on (d)'s model: one /relevancy reply;
+ 15. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
-     and 8; K6 by shape: serve, RGB aligned), then the card's
-     name and power limit, then the final {"ok": true, ...}.
+     and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
+     stage-A launches), then the card's name and power limit, then the
+     final {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import base64
+import gzip
 import json
 import os
 import re
@@ -1182,12 +1204,14 @@ def k8_columns(got, want_col, want_geo, label: str, extra=()) -> dict:
     return out
 
 
-def rgb_phase(dev: torch.device, gpu: str) -> dict:
+def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
     """Phases 10-13: RGB pretraining through cli.train_rgb.run at 1280x720,
     the step's times and profile, K8 against its plain version on the
     trained state with the loss's real cotangents, and the snapshot PLY
-    rendered. Returns K8's report entry, K3's at the RGB widths, K1's
-    at the RGB width and K6's on the step's aligned binning."""
+    rendered; then `after(scene dir, model dir)` (phase 14) while both
+    exist. Returns K8's report entry, K3's at the RGB widths, K1's at the
+    RGB width, K6's on the step's aligned binning and what after
+    returned."""
     import dataclasses
 
     from gags_torch.cli.train_rgb import RunConfig, run
@@ -1431,7 +1455,351 @@ def rgb_phase(dev: torch.device, gpu: str) -> dict:
                  f"cloud's {db['seed']} dB")
         print(f"# snapshot PLY: {scene.num_gaussians} Gaussians, camera 0 PSNR "
               f"{db['snapshot']:.3f} dB (seed cloud {db['seed']:.3f} dB)", flush=True)
-    return k8, k3_rgb, k1_rgb, k6_rgb
+        del scene, seed, state, batches, imgs
+        torch.cuda.empty_cache()
+        after_report = after(root, model)
+    return k8, k3_rgb, k1_rgb, k6_rgb, after_report
+
+# the GAS phase (stage 2, scripts/GAS.sh) on the RGB phase's scene and model
+GAS_GAD_STEPS = 10
+GAS_PROMPT_BATCH = 256      # the CLI's --points_per_batch
+GAS_MANY_PROMPTS = 32       # build_point_grid(32): 1024 prompts, four batches of 256
+GAS_CPU_PROMPTS = 16        # prompts of the card-vs-CPU decoder check
+# max relative error of the card's f32 SAM vs the CPU's: above the true-f32
+# reading (2.7e-6 on an H100) and below what TF32 matmuls give, which the
+# phase measures as its control
+GAS_REL_LIMIT = 2e-5
+GAS_LOWERED = dict(pred_iou_thresh=-10.0, stability_score_thresh=-1.0, min_mask_region_area=4)
+GAS_FILTER_LOWERED = dict(iou_thr=0.95, score_thr=-10.0, inner_thr=0.9)
+GAS_LABELS = ("hello world", "a photo")
+
+
+def write_bpe(path: str) -> str:
+    """A small CLIP merge table (the real bpe_simple_vocab_16e6.txt.gz is
+    the user's): "hello", "world" and "photo" merge fully."""
+    merges = ["#version: 0.2", "h e", "he l", "hel l", "hell o</w>", "w o", "wo r", "wor l",
+              "worl d</w>", "p h", "ph o", "pho t", "phot o</w>"]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(merges) + "\n")
+    return path
+
+
+def random_checkpoint(model: torch.nn.Module, path: str, seed: int, dev) -> dict:
+    """Seeded random weights for every key of `model`'s state dict (built on
+    the meta device), written to `path` as a plain float32 state dict in the
+    upstream layout: norms 1, biases and positions N(0, 0.02), embeddings
+    and tokens N(0, 1), weight matrices N(0, 1 / fan_in), so activations
+    stay O(1) through the full depth. Returns the CPU state dict."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        leaf = k.rsplit(".", 1)[-1]
+        norm = any(t in k for t in ("norm", "ln_", "neck.1", "neck.3", "upscaling.1",
+                                    "downscaling.1", "downscaling.4"))
+        if norm:
+            t = (torch.ones(shape, device=dev) if leaf == "weight"
+                 else torch.zeros(shape, device=dev))
+        elif any(t in k for t in ("point_embeddings", "not_a_point", "no_mask", "iou_token",
+                                  "mask_tokens", "gaussian_matrix", "class_embedding",
+                                  "token_embedding")):
+            t = torch.randn(shape, generator=gen, device=dev)
+        elif len(shape) >= 2 and "pos" not in k and "rel_pos" not in k:
+            fan_in = shape[0] if "upscaling" in k else int(np.prod(shape[1:]))
+            if k in ("visual.proj", "text_projection"):
+                fan_in = shape[0]
+            t = torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5
+        else:
+            t = 0.02 * torch.randn(shape, generator=gen, device=dev)
+        sd[k] = t.cpu()
+    torch.save(sd, path)
+    return sd
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 14: GAS (scripts/GAS.sh) on the RGB phase's scene and model,
+    then GAD on its output and text embeddings for the server. Returns the
+    report: stage-A launches, stage times, mask counts."""
+    import dataclasses
+
+    from gags_torch.cli import depth_sample, encode_text, gas, render as render_cli
+    from gags_torch.cli.serve import load_server, make_handler
+    from gags_torch.cli.train_gad import RunConfig, run as train_gad
+    from gags_torch.gad.train import GadConfig
+    from gags_torch.gas.depth_sampler import (min_depth_over_cameras, project_points,
+                                              splat_depth_samples)
+    from gags_torch.gas.generator import AutomaticMaskGenerator, GeneratorConfig
+    from gags_torch.gas.prompts import build_all_layer_mindepth_point_grids, build_point_grid
+    from gags_torch.models.clip import CLIP, CLIPConfig, load_openclip_checkpoint
+    from gags_torch.models.sam import SAM, SAMConfig, preprocess_sam_image, resize_geometry
+    from gags_torch.models.sam_weights import load_sam_checkpoint, load_sam_state_dict
+    from gags_torch.scene.dataset import camera_from_info, detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat import kernels
+
+    report: dict = {}
+    it = RGB_STEPS
+    info = detect_and_load(root, foundation_model="none")
+    names = [os.path.splitext(ci.name)[0] for ci in info.train_cameras]
+
+    # -- 14a. stage A: RGB + expected depth through the render CLI ----------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = render_cli.run(model, root, it, render_mode="RGB+ED", skip_test=True, device=dev)
+    torch.cuda.synchronize()
+    stage_a = {k: v for k, v in kernels.launch_counts.items() if v}
+    print(f"# GAS stage A render: {r['train']['frames']} frames, "
+          f"{r['train']['frames_per_s']:.2f} frames/s, launches {stage_a} ({gpu})", flush=True)
+    for name in ("blend_forward", "expand_gid"):
+        if stage_a.get(name, 0) < len(names):
+            fail(f"GAS stage A: {name} launched {stage_a.get(name, 0)} times for {len(names)} frames")
+    report["stage_a_launches"] = stage_a
+
+    # -- 14b. depth samples, the card's maps against the CPU's bit for bit --
+    t0 = time.perf_counter()
+    ds = depth_sample.run(root, model, it, device=dev)
+    report["depth_sample_s"] = time.perf_counter() - t0
+    ply = os.path.join(model, "point_cloud", f"iteration_{it}", "point_cloud.ply")
+    pts = GaussianScene.from_ply(ply).means
+    cams = [camera_from_info(ci, -1) for ci in info.train_cameras]
+    dmaps = torch.as_tensor(np.stack([np.load(os.path.join(
+        model, "train", f"ours_{it}", "depth", n + "_depth.npy")) for n in names]))
+    vms, Ks = torch.stack([c.viewmat for c in cams]), torch.stack([c.K for c in cams])
+    mind, vis, uv = min_depth_over_cameras(pts, vms, Ks, dmaps)
+    uv_moved = 0
+    for i, (n, c) in enumerate(zip(names, cams)):
+        want = splat_depth_samples(mind, vis[:, i], uv[:, i], c.height, c.width).numpy()
+        got = np.load(os.path.join(root, "depths_sample", n + "_depth_sample.npy"))
+        if not np.array_equal(got, want):
+            fail(f"depth samples of {n}: the card's map differs from the CPU's at "
+                 f"{int((got != want).sum())} pixels")
+        u_c, v_c, _, _ = project_points(pts.to(dev), vms[i].to(dev), Ks[i].to(dev),
+                                        dmaps[i].to(dev), c.width, c.height)
+        u, v, _, _ = project_points(pts, vms[i], Ks[i], dmaps[i], c.width, c.height)
+        uv_moved += int(((u_c.cpu() != u) | (v_c.cpu() != v)).sum())
+    print(f"# GAS depth samples: {ds['maps']} maps bit-identical to the CPU's, "
+          f"{sum(ds['visible'])} visible (point, camera) pairs, {uv_moved} projected (u, v) "
+          f"differ between card and CPU over {pts.shape[0]} points x {len(cams)} cameras, "
+          f"{report['depth_sample_s']:.2f} s ({gpu})", flush=True)
+    report["uv_differ"] = uv_moved
+
+    # -- 14c. GAS with ViT-H SAM and ViT-B/16 CLIP --------------------------
+    t0 = time.perf_counter()
+    sam_path, clip_path = os.path.join(root, "sam_vit_h.pth"), os.path.join(root, "clip_b16.pt")
+    sam_sd = random_checkpoint(SAM(SAMConfig.vit_h(), device="meta"), sam_path, 1, dev)
+    random_checkpoint(CLIP(CLIPConfig.vit_b_16(), device="meta"), clip_path, 2, dev)
+    print(f"# GAS checkpoints: random ViT-H SAM {os.path.getsize(sam_path) / 2**30:.2f} GiB, "
+          f"ViT-B/16 CLIP {os.path.getsize(clip_path) / 2**30:.2f} GiB, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    for label, kw in (("f32", {}), ("bf16 batch 4", dict(bf16=True, encoder_batch=4)),
+                      ("f32 lowered", dict(gen_cfg=GeneratorConfig(**GAS_LOWERED),
+                                           filter_thresholds=GAS_FILTER_LOWERED))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = gas.run(root, model, it, sam_ckpt=sam_path, clip_ckpt=clip_path, device=dev, **kw)
+        rep["wall_s"] = time.perf_counter() - t0
+        rep["s_per_image"] = rep["seconds"] / len(rep["images"])
+        kept = [sum(v.values()) for v in rep["images"].values()]
+        print(f"# GAS {label}: {rep['written']} of {len(names)} images written, masks kept per "
+              f"image {kept}, {rep['s_per_image']:.2f} s per image (encode {rep['encode_s']:.2f} s, "
+              f"generate {rep['generate_s']:.2f} s, clip {rep['clip_s']:.2f} s in all; "
+              f"{rep['wall_s']:.1f} s with loading) ({gpu})", flush=True)
+        runs[label] = {k: rep[k] for k in ("written", "seconds", "s_per_image", "encode_s",
+                                            "generate_s", "clip_s", "wall_s")}
+        runs[label]["masks_per_image"] = kept
+    report["runs"] = runs
+    if runs["f32 lowered"]["written"] != len(names):
+        fail(f"GAS with lowered thresholds wrote {runs['f32 lowered']['written']} of "
+             f"{len(names)} images")
+    for n in names:
+        f = np.load(os.path.join(root, "language_features", n + "_f.npy"))
+        s = np.load(os.path.join(root, "language_features", n + "_s.npy"))
+        if (f.dtype != np.float16 or f.shape[1] != CLIPConfig.vit_b_16().embed_dim
+                or s.shape != (4, cams[0].height, cams[0].width)
+                or not np.isfinite(f).all() or f.shape[0] != int(s.max()) + 1):
+            fail(f"language features of {n}: f {f.shape} {f.dtype}, s {s.shape} max {s.max()}")
+
+    # stage times on one image, beside the card's name and power limit
+    image = gas.load_image_1080p(info.train_cameras[0].image_path)
+    sam, _ = load_sam_checkpoint(sam_path, SAMConfig.vit_h(), device=dev)
+    size = SAMConfig.vit_h().image_size
+    pre_ms = cuda_ms(lambda: preprocess_sam_image(image, size, dev), 3, warmup=1)
+    x1 = preprocess_sam_image(image, size, dev)[0]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        emb = sam.encode_image(x1)
+        torch.cuda.synchronize()
+        enc_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        enc_ms = cuda_ms(lambda: sam.encode_image(x1), 3, warmup=1)
+        enc_prof = profile_request(lambda: sam.encode_image(x1),
+                                   "SAM ViT-H encoder, one image, f32", top=12)
+    depth = np.load(os.path.join(model, "train", f"ours_{it}", "depth", names[0] + "_depth.npy"))
+    sample = np.load(os.path.join(root, "depths_sample", names[0] + "_depth_sample.npy"))
+    # the CLI's grid (8 per side: 64 prompts, one partly filled batch), a
+    # full batch of 256 prompts, and 1024 prompts: four batches, so the
+    # decode of batch k+1 is queued before batch k is consumed
+    grids = {"CLI grid": build_all_layer_mindepth_point_grids(8, 0, 1, 4, depth, sample,
+                                                              np.random.default_rng(0))[0],
+             "full batch": build_point_grid(16),
+             "1024 prompts": build_point_grid(GAS_MANY_PROMPTS)}
+    nh, nw = resize_geometry(*image.shape[:2], size)
+
+    def prompts(grid):
+        pts = torch.as_tensor(grid[:, None] * np.array([[nw, nh]]) / size,
+                              dtype=torch.float32, device=dev)
+        return pts, torch.ones(pts.shape[:2], dtype=torch.long, device=dev)
+
+    dec_ms = {}
+    with torch.no_grad():
+        for key in ("CLI grid", "full batch"):
+            pts_b, lbl_b = prompts(grids[key])
+            dec_ms[f"{len(grids[key])} prompts"] = cuda_ms(
+                lambda: sam.decode(emb, pts_b, lbl_b), 5)  # noqa: B023
+    gens = {}
+    for key, thr in (("CLI grid", "CLI"), ("1024 prompts", "CLI"), ("CLI grid", "lowered")):
+        gen = AutomaticMaskGenerator(sam, GeneratorConfig(**(GAS_LOWERED if thr == "lowered"
+                                                            else {})))
+        grid, got = grids[key], {}
+
+        def generate():
+            got["levels"] = gen.generate(image, grid, embed=emb)  # noqa: B023
+
+        label = f"{len(grid)} prompts, {thr} thresholds"
+        prof = profile_request(generate, f"generate ({label}, batches of "
+                                         f"{gen.cfg.points_per_batch})", top=8)
+        gens[label] = dict(prof, batches=-(-len(grid) // gen.cfg.points_per_batch),
+                           records=[len(v) for v in got["levels"]])
+    from gags_torch.cli.gas import round_weights_bf16
+
+    round_weights_bf16(sam)
+    x4 = torch.cat([preprocess_sam_image(gas.load_image_1080p(ci.image_path), size, dev)[0]
+                    for ci in info.train_cameras[:4]])
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sam.encode_image(x4)
+        torch.cuda.synchronize()
+        enc4_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        enc4_ms = cuda_ms(lambda: sam.encode_image(x4), 3, warmup=1) / 4
+    del sam, gen, emb, x1, x4
+    clip, _ = load_openclip_checkpoint(clip_path, device=dev)
+    side = CLIPConfig.vit_b_16().image_size
+    crops = torch.rand((GAS_PROMPT_BATCH, 3, side, side), device=dev)
+    with torch.no_grad():
+        clip_ms = cuda_ms(lambda: clip.encode_image(crops), 5)
+        clip_prof = profile_request(lambda: clip.encode_image(crops),
+                                    f"CLIP ViT-B/16, {GAS_PROMPT_BATCH} crops", top=8)
+    del clip, crops
+    report["times"] = dict(
+        preprocess_ms_per_image=pre_ms, encoder_ms_per_image_f32=enc_ms,
+        encoder_peak_mib_f32=enc_peak,
+        encoder_busy_ms_f32=enc_prof["busy_ms"], clip_busy_ms=clip_prof["busy_ms"],
+        encoder_ms_per_image_bf16_batch4=enc4_ms, encoder_peak_mib_bf16_batch4=enc4_peak,
+        decoder_ms_per_batch=dec_ms, generate=gens,
+        clip_ms_per_batch_of_256_crops=clip_ms,
+        gas_s_per_image={k: v["s_per_image"] for k, v in runs.items()})
+    print(f"# GAS times: {report['times']} ({gpu})", flush=True)
+    print(f"# GAS s per image at the CLI's thresholds covers the SAM encoder and one "
+          f"{len(grids['CLI grid'])}-prompt decode with its upscale: no mask survives "
+          f"filter_masks there, so box NMS, cleanup, crops and CLIP run only in the lowered "
+          f"run", flush=True)
+
+    # the card's f32 SAM against the CPU's: ViT-H widths cut to a windowed
+    # and a global block, one 1024 image, one prompt batch; the card with
+    # TF32 matmuls is the control the limit must catch
+    cut = dataclasses.replace(SAMConfig.vit_h(), encoder_depth=2, global_attn_idx=(1,))
+    g = SAMConfig.vit_h().global_attn_idx[0]
+    sd2 = {k: v for k, v in sam_sd.items() if not k.startswith("image_encoder.blocks.")}
+    for dst, src in ((0, 0), (1, g)):
+        pre = f"image_encoder.blocks.{src}."
+        sd2.update({f"image_encoder.blocks.{dst}." + k[len(pre):]: v
+                    for k, v in sam_sd.items() if k.startswith(pre)})
+    del sam_sd
+    x = preprocess_sam_image(image, cut.image_size, "cpu")[0]
+    pts_b, lbl_b = prompts(grids["CLI grid"][:GAS_CPU_PROMPTS])
+    outs = {}
+    with torch.no_grad():
+        for key, d, tf32 in (("card", dev, False), ("card TF32", dev, True),
+                             ("cpu", torch.device("cpu"), False)):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                m = load_sam_state_dict(sd2, cut, device=d)
+                e = m.encode_image(x.to(d))
+                lo, io = m.decode(e, pts_b.to(d), lbl_b.to(d))
+                outs[key] = (e.cpu(), lo.cpu(), io.cpu())
+                del m
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+    errs = {key: {name: rel_err(a, b) for name, a, b in zip(
+        ("embedding", "mask logits", "iou"), outs[key], outs["cpu"])}
+        for key in ("card", "card TF32")}
+    print(f"# GAS SAM card vs CPU (ViT-H widths, 2 blocks: windowed + global, one 1024 image, "
+          f"{GAS_CPU_PROMPTS} prompts): max relative error, true f32 {errs['card']}, TF32 "
+          f"control {errs['card TF32']}, limit {GAS_REL_LIMIT} ({gpu})", flush=True)
+    if max(errs["card"].values()) > GAS_REL_LIMIT:
+        fail(f"the card's SAM disagrees with the CPU's: {errs['card']}")
+    if not max(errs["card TF32"].values()) > GAS_REL_LIMIT:
+        fail(f"the card-vs-CPU limit {GAS_REL_LIMIT} does not catch TF32: {errs['card TF32']}")
+    report["card_vs_cpu_rel_err"] = errs
+
+    # -- 14d. GAD on the GAS output -------------------------------------------
+    gad_dir = os.path.join(root, "gad")
+    losses = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_gad(RunConfig(source_path=root, model_path=gad_dir, ply_path=ply, resolution=2,
+                        iterations=GAS_GAD_STEPS, save_iterations=str(GAS_GAD_STEPS),
+                        test_iterations="", device=str(dev)),
+              GadConfig(clip_dim=CLIPConfig.vit_b_16().embed_dim),
+              on_step=lambda i, st, m: m is not None and losses.append(float(m["loss"])))
+    torch.cuda.synchronize()
+    gad_launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    if len(losses) != GAS_GAD_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"GAD on the GAS output: losses {losses}")
+    print(f"# GAD on the GAS output: {GAS_GAD_STEPS} steps in {time.perf_counter() - t0:.1f} s, "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, launches {gad_launches} ({gpu})", flush=True)
+    report["gad_launches"] = gad_launches
+
+    # -- 14e. text embeddings into the server: one /relevancy reply --------
+    bpe = write_bpe(os.path.join(root, "bpe.txt.gz"))
+    npz = os.path.join(root, "embeds.npz")
+    emb_t = encode_text.run(clip_path, list(GAS_LABELS), npz, bpe=bpe, device=dev)
+    if emb_t["pos"].shape != (2, CLIPConfig.vit_b_16().embed_dim) or not np.allclose(np.linalg.norm(emb_t["neg"], axis=1), 1,
+                                                         atol=1e-5):
+        fail(f"encode_text: pos {emb_t['pos'].shape}")
+    server = load_server(gad_dir, GAS_GAD_STEPS, text_embeds=npz, device=dev)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    c0 = cams[0]
+    body = dict(viewmat=c0.viewmat.reshape(-1).tolist(), K=c0.K.reshape(-1).tolist(),
+                width=c0.width, height=c0.height, label=GAS_LABELS[0])
+    try:
+        rq = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/relevancy",
+                                    data=json.dumps(body).encode(), method="POST",
+                                    headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(rq, timeout=300) as resp:
+            status, payload = resp.status, json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if status != 200 or not 0 <= payload["relevancy_max"] <= 1:
+        fail(f"/relevancy with encode_text's embeddings: {status} {payload.get('relevancy_max')}")
+    print(f"# encode_text → /relevancy on the GAD model: status {status}, relevancy_max "
+          f"{payload['relevancy_max']:.4f}, {payload['selected_px']} px selected", flush=True)
+    return report
 
 
 def main() -> int:
@@ -1645,8 +2013,9 @@ def main() -> int:
         dev, gpu, lambda root, model: options_phase(root, model, dev, gpu, serve_k5))
     del serve_k5, cols_f
 
-    # -- 10-13. RGB pretraining, K8 ---------------------------------------------
-    k8, k3_rgb, k1_rgb, k6_rgb = rgb_phase(dev, gpu)
+    # -- 10-13. RGB pretraining, K8; 14. GAS on its scene and model --------------
+    k8, k3_rgb, k1_rgb, k6_rgb, gas_report = rgb_phase(
+        dev, gpu, lambda root, model: gas_phase(root, model, dev, gpu))
     rgb_kernels = [k8]
     for r in k3_rgb.values():  # two launches a step: C = 3 and C = 8
         r["launches"] = k8["rgb_launches"]["sorted_segment_sum"] // 2
@@ -1655,7 +2024,7 @@ def main() -> int:
     k1 = next(r for r in train_kernels if r["id"] == "K1")
     k1["by_width"] = {"GAD C=16": {k: k1[k] for k in k1_rgb}, "RGB C=3": k1_rgb}
 
-    # -- 14. report --------------------------------------------------------------
+    # -- 15. report --------------------------------------------------------------
     f16 = k5["features"]
     keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1672,6 +2041,7 @@ def main() -> int:
             **{k: k6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                   "events_ms", "timing")},
             "empty_launch_ms": empty_launch_ms,
+            "gas_stage_a_launches": gas_report["stage_a_launches"].get("expand_gid", 0),
             "by_shape": {"serve": k6, "RGB aligned": k6_rgb},
         },
         {
@@ -1684,6 +2054,7 @@ def main() -> int:
             "bound_ms": max(f16["bytes_ms"], f16["ops_ms"]),
             "bound_by": "bytes" if f16["bytes_ms"] >= f16["ops_ms"] else "operations",
             "library_ms": None, "timing": DEVICE_TIMING,
+            "gas_stage_a_launches": gas_report["stage_a_launches"].get("blend_forward", 0),
             "by_option": options["k5"],
             "by_channels": {
                 str(v["channels"]): {
@@ -1713,11 +2084,13 @@ def main() -> int:
                   "events_ms: back-to-back launches between CUDA events",
         "events_ms": head["events_ms"],
         "fused_render_launches": options["render"]["fused_render_launches"],
+        "gas_stage_a_launches": gas_report["stage_a_launches"].get("expand_keys", 0),
         "by_shape": k7,
         "render_cli": {k: {kk: r[kk] for kk in ("frames", "seconds", "frames_per_s",
                                                  "autotune", "launches")}
                        for k, r in render_runs.items()},
     })
+    print(f"# GAS report: {json.dumps(gas_report)}")
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")

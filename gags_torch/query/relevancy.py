@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+DEFAULT_NEGATIVES = ("object", "things", "stuff", "texture")
 TEMPERATURE = 10.0
 
 

@@ -102,35 +102,130 @@ def read_png(path: str) -> np.ndarray:
     return _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
 
 
+def _decodable_png(head: bytes) -> bool:
+    """Whether a file's first 29 bytes open an 8-bit grey, RGB or RGBA PNG
+    without interlace, the PNGs `read_png` decodes."""
+    return (len(head) == 29 and head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR"
+            and head[24] == 8 and head[25] in _PNG_CHANNELS and not head[28])
+
+
+def _pil_rgb(path: str, why: str):
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(f"{path}: {why}") from None
+    return Image.open(path).convert("RGB")
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8 at its own size, the pixels PIL's
+    `Image.open(p).convert("RGB")` gives: an 8-bit grey, RGB or RGBA PNG
+    without interlace is decoded by `read_png` (grey replicated, alpha
+    dropped); any other file needs PIL and, without it, raises ValueError
+    naming the file."""
+    with open(path, "rb") as f:
+        head = f.read(29)
+    if _decodable_png(head):
+        px = read_png(path)
+        return np.repeat(px[..., :1], 3, axis=-1) if px.shape[-1] <= 2 else px[..., :3]
+    return np.asarray(_pil_rgb(path, "without PIL (not installed) only an 8-bit grey, RGB "
+                                     "or RGBA PNG without interlace is read"), np.uint8)
+
+
 def load_rgb(path: str, width: int, height: int) -> np.ndarray:
     """An image file as (height, width, 3) uint8, the pixels the JAX package
     loads (`Image.open(p).convert("RGB").resize((w, h))`; it then divides
     by 255 in float32, as the RGB trainer does on the device): a PNG
-    of that size is decoded by `read_png` (grey replicated, alpha dropped,
-    as PIL's convert("RGB") does; PIL's resize to the same size is the
-    identity). Any other file or size goes through PIL when it can be
-    imported; without PIL it raises ValueError naming the file and the two
-    sizes. Nothing is resized by another method."""
+    of that size is decoded by `read_rgb` (PIL's resize to the same size
+    is the identity). Any other file or size goes through PIL when it can
+    be imported; without PIL it raises ValueError naming the file and the
+    two sizes. Nothing is resized by another method."""
     with open(path, "rb") as f:
         head = f.read(29)
-    if head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR" and len(head) == 29:
-        size = struct.unpack(">II", head[16:24])
-        depth, ctype, interlace = head[24], head[25], head[28]
-        if (size == (width, height) and depth == 8 and ctype in _PNG_CHANNELS
-                and not interlace):
-            px = read_png(path)
-            c = px.shape[-1]
-            return np.repeat(px[..., :1], 3, axis=-1) if c <= 2 else px[..., :3]
-    else:
-        size = None
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ValueError(
-            f"{path}: image size {size or 'unknown (not a PNG)'}, camera size "
-            f"{(width, height)}: without PIL (not installed) only an 8-bit grey, RGB or "
-            f"RGBA PNG of the camera's size is read") from None
-    return np.asarray(Image.open(path).convert("RGB").resize((width, height)), np.uint8)
+    png = len(head) == 29 and head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR"
+    size = struct.unpack(">II", head[16:24]) if png else None
+    if size == (width, height) and _decodable_png(head):
+        return read_rgb(path)
+    img = _pil_rgb(path, f"image size {size or 'unknown (not a PNG)'}, camera size "
+                         f"{(width, height)}: without PIL (not installed) only an 8-bit grey, "
+                         f"RGB or RGBA PNG of the camera's size is read")
+    return np.asarray(img.resize((width, height)), np.uint8)
+
+
+_PIL_PRECISION_BITS = 22  # Pillow's Resample.c: 32 - 8 - 2
+
+
+def _pil_bilinear_taps(n_in: int, n_out: int):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for its BILINEAR
+    (triangle) filter: per output index the first input index and the
+    integer weights of its taps, (n_out,) and (n_out, taps), computed in
+    float64 in Pillow's order of operations."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5), n_in).astype(np.int64) - xmin
+    taps = np.arange(ksize)
+    w = 1.0 - np.abs(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) / filterscale)
+    w = np.where((w > 0) & (taps[None, :] < xmax[:, None]), w, 0.0)
+    total = np.zeros(n_out)
+    for t in range(ksize):  # the C loop's order of addition
+        total = total + w[:, t]
+    w = w / np.where(total != 0, total, 1.0)[:, None]
+    kk = np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int32)
+    return xmin, kk
+
+
+def _pil_pass(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """One 8-bit pass of Pillow's resample along `axis` of an int32 tensor
+    (the weights sum to ~2^22, so 255 times them fits in 31 bits; integer
+    arithmetic is exact on any device)."""
+    n_in = x.shape[axis]
+    xmin, kk = _pil_bilinear_taps(n_in, n_out)
+    x = x.movedim(axis, 0)
+    first = torch.as_tensor(xmin, device=x.device)
+    kk = torch.as_tensor(kk, device=x.device)
+    shape = (n_out,) + (1,) * (x.dim() - 1)
+    acc = torch.full((n_out,) + tuple(x.shape[1:]), 1 << (_PIL_PRECISION_BITS - 1),
+                     dtype=torch.int32, device=x.device)
+    for t in range(kk.shape[1]):
+        acc += x[(first + t).clamp_max(n_in - 1)] * kk[:, t].reshape(shape)
+    return (acc >> _PIL_PRECISION_BITS).clamp_(0, 255).movedim(0, axis)
+
+
+def resize_uint8_bilinear(img, out_hw):
+    """(H, W, C) uint8 → out_hw uint8, as PIL's Image.resize(..., BILINEAR)
+    computes it, without PIL: Pillow's antialiased triangle filter with its
+    22-bit integer weights, along the width first, then along the height,
+    each pass rounded half up to 8 bits (Resample.c). A numpy array gives
+    a numpy array; a tensor gives a tensor on its own device."""
+    as_numpy = isinstance(img, np.ndarray)
+    x = (torch.from_numpy(np.ascontiguousarray(img)) if as_numpy else img).to(torch.int32)
+    h, w = x.shape[:2]
+    h_out, w_out = out_hw
+    if w_out != w:
+        x = _pil_pass(x, 1, w_out)
+    if h_out != h:
+        x = _pil_pass(x, 0, h_out)
+    x = x.to(torch.uint8)
+    return x.numpy() if as_numpy else x
+
+
+def resize_like_jax(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """(..., H, W) float → (..., h, w) with jax.image.resize(..., "bilinear")
+    semantics: half-pixel centres, and a triangle filter widened by the
+    scale along every axis that shrinks (antialiasing), which is
+    F.interpolate's bilinear, with antialias where some axis shrinks."""
+    h, w = x.shape[-2:]
+    if (h, w) == tuple(out_hw):
+        return x
+    lead = x.shape[:-2]
+    y = torch.nn.functional.interpolate(
+        x.reshape(-1, 1, h, w), size=tuple(out_hw), mode="bilinear", align_corners=False,
+        antialias=out_hw[0] < h or out_hw[1] < w)
+    return y.reshape(*lead, *out_hw)
 
 
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:

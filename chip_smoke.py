@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
-  2. build every kernel from gags_torch/splat/csrc
+  2. build every kernel from gags_torch/splat/csrc and gags_torch/probes/csrc
      (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
@@ -71,6 +71,30 @@ Phases, each of which fails the run:
      before and read just after (autotune times, winner, frames/s, K7
      launches), then the cameras once more with fused_keys and tile_cull:
      K7 once per frame, the images equal to the unfused render's;
+ 9c. query and evaluation on phase 7's model dir (300k Gaussians, F = 16,
+     CLIP 512, 1280x720), with an npz of three prompts from
+     gags_torch.cli.encode_text.run on a seeded random ViT-B/16 (as phase
+     14(e) writes it): (a) gags_torch.cli.relevancy image mode over the
+     four cameras with the launch counts set to 0 just before and read
+     just after (K5 and K6 or K7 once a frame at least), camera 0's PNGs
+     equal to relevancy_maps on the card, and its heat maps and masks
+     against the same functions on CPU tensors from the card's feature
+     map (heat maps at phase 4's tolerance; every threshold flip of a
+     mask within the heat map's error, stretched as the mask stretches
+     it, of the threshold, and at most 49 smoothed flips a threshold
+     flip; flips counted); (b)
+     --video over QUERY_VIDEO_FRAMES frames (the mp4 is reported skipped
+     where cv2 is missing); (c) --pcd_mode over every Gaussian with the
+     neighbour vote (seconds of the decode, relevancy, KNN and selection),
+     the KNN timed again in 4096x16384 blocks against the CLI's
+     1024x4096, and the vote on QUERY_SUBSET points card against CPU at a
+     radius from the data (any flip must sit at the radius; flips listed);
+     (d) gags_torch.cli.evaluate on a labelme folder written for two
+     cameras at QUERY_GT_W x QUERY_GT_H (float vertices, one label twice),
+     each frame's IoUs and hits recomputed on the CPU from the card's
+     decoded map, and once more with --clip_ckpt --bpe (the same IoUs);
+     (e) gags_torch.cli.edit, color_func / deletion / extraction at the
+     median similarity: the PLYs read back, deleted + extracted = N;
  10. RGB pretraining: write a COLMAP scene to a temporary directory with
      the port's own writers (ground-truth PNGs of make_scene(300_000,
      seed=0, extent=3.0) with SH-3 colours rendered by K5 from eight
@@ -125,11 +149,20 @@ Phases, each of which fails the run:
      gags_torch.cli.train_gad.run on the RGB snapshot PLY and the GAS
      output; (e) gags_torch.cli.encode_text.run with a small merge table,
      its npz served by load_server on (d)'s model: one /relevancy reply;
- 15. print {"kernels": [...]} with times, bounds and launch counts of
+ 15. the probes' kernels P1 vpu_chain and P2 slab_chain (the TPU probes
+     scripts/vpu_probe.py and scripts/slab_probe.py): their entry points
+     (vpu_probe.main, slab_probe.main) with the launch counts set to 0
+     just before and read just after; P1 at the TPU block (512x256, reps
+     1) and at the rate shape (8192x512, reps 64), P2 at every slab, in
+     float32 and bfloat16, each against its plain version (bit for bit;
+     P1 in float32 within 1 ulp) and bit-identical on a second launch,
+     with device time per call (torch.profiler), CUDA-events time, the
+     plain version's times and the bound;
+ 16. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
-     stage-A launches), then the card's name and power limit, then the
-     final {"ok": true, ...}.
+     stage-A launches) and P1-P2, the query report, then the card's name
+     and power limit, then the final {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1088,6 +1121,291 @@ def options_phase(root: str, model: str, dev: torch.device, gpu: str, serve: dic
                 render=render_cli_phase(root, model, dev, gpu))
 
 
+# phase 9c: query and evaluation on phase 7's model dir (the train configuration)
+QUERY_LABELS = ("hello world", "a photo", "teapot")
+QUERY_THRESH = 0.5  # the relevancy CLI's default
+QUERY_VIDEO_FRAMES = 8
+QUERY_GT_W, QUERY_GT_H = 960, 540  # the labels' resolution (cameras resized to it)
+QUERY_GT_CAMERAS = (0, 2)
+QUERY_SUBSET = 20_000  # points of the card-vs-CPU neighbour vote
+QUERY_VOTE_K, QUERY_VOTE_RANK, QUERY_VOTE_MIN = 32, 16, 8
+
+
+def write_labelme(root: str, cameras, labels, w: int, h: int, seed: int) -> str:
+    """frame_<i + 1>.json per camera index i in the LERF labelme layout:
+    per label one polygon of 5-23 float vertices (the first label two, so
+    its masks merge), with its bounding box."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    for i in cameras:
+        objects = []
+        for label in tuple(labels) + tuple(labels[:1]):
+            n = int(rng.integers(5, 24))
+            ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+            r = rng.uniform(0.05, 0.3, n) * min(w, h)
+            c = rng.uniform([0.2 * w, 0.2 * h], [0.8 * w, 0.8 * h])
+            pts = np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1)
+            (x0, y0), (x1, y1) = pts.min(0), pts.max(0)
+            objects.append(dict(category=label, bbox=[float(x0), float(y0), float(x1), float(y1)],
+                                segmentation=pts.tolist()))
+        with open(os.path.join(root, f"frame_{i + 1:05d}.json"), "w") as f:
+            json.dump(dict(info=dict(height=h, width=w, name=f"frame_{i + 1:05d}.jpg"),
+                           objects=objects), f)
+    return root
+
+
+def counted(fn):
+    """fn()'s result and the splat kernels' launches during it (counts set
+    to 0 just before, read just after)."""
+    from gags_torch.splat import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernels.launch_counts.items() if v}
+
+
+def query_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 9c: the query and evaluation CLIs on phase 7's model dir (300k
+    Gaussians, F = 16, CLIP 512, 1280x720), with text embeddings written
+    by gags_torch.cli.encode_text.run as phase 14(e) writes them. Returns
+    the report."""
+    from gags_torch.cli import edit as edit_cli
+    from gags_torch.cli import encode_text
+    from gags_torch.cli import evaluate as eval_cli
+    from gags_torch.cli import relevancy as rel_cli
+    from gags_torch.knn.knn import knn_with_indices
+    from gags_torch.models.clip import CLIP, CLIPConfig
+    from gags_torch.models.decoders import feature_decoder_from_state
+    from gags_torch.query import edit as qedit
+    from gags_torch.query import eval_iou, grounding
+    from gags_torch.query.relevancy import heatmap_to_mask, majority_smooth, max_across_levels
+    from gags_torch.scene.dataset import camera_from_info, detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat.rasterizer import RasterizeConfig
+    from gags_torch.splat.render import render
+    from gags_torch.utils.colormaps import turbo
+    from gags_torch.utils.image import encode_png
+
+    cpu = torch.device("cpu")
+    rep = {}
+    qdir = os.path.join(os.path.dirname(root), "query")
+    os.makedirs(qdir)
+    clip_path = os.path.join(qdir, "clip_vit_b_16.pt")
+    random_checkpoint(CLIP(CLIPConfig.vit_b_16(), device="meta"), clip_path, 3, dev)
+    bpe = write_bpe(os.path.join(qdir, "bpe.txt.gz"))
+    npz = os.path.join(qdir, "embeds.npz")
+    encode_text.run(clip_path, list(QUERY_LABELS), npz, bpe=bpe, device=dev)
+    labels, pos, neg = rel_cli.load_text_embeds(npz)
+    pos_d, neg_d = torch.as_tensor(pos, device=dev), torch.as_tensor(neg, device=dev)
+
+    # -- (a) image mode over the four cameras, camera 0 against the CPU ------
+    img, launches = counted(lambda: rel_cli.run(model, root, TRAIN_STEPS, text_embeds=npz,
+                                                resolution=1, device=dev))
+    if launches.get("blend_forward", 0) < img["frames"]:
+        fail(f"relevancy image mode: K5 launched {launches} for {img['frames']} frames")
+    if launches.get("expand_gid", 0) + launches.get("expand_keys", 0) < img["frames"]:
+        fail(f"relevancy image mode: neither K6 nor K7 bins every frame: {launches}")
+    print(f"# relevancy image mode: {img['frames']} frames at {TRAIN_SRC_W}x{TRAIN_SRC_H}, "
+          f"{len(labels)} prompts, {img['frames_per_s']:.3f} frames/s ({img['seconds']:.2f} s, "
+          f"PNG writes included), launches {launches} ({gpu})", flush=True)
+    rep["image"] = dict(frames=img["frames"], seconds=img["seconds"],
+                        frames_per_s=img["frames_per_s"], launches=launches)
+    scene, dec = rel_cli.load_query_model(model, TRAIN_STEPS, dev)
+    raster = RasterizeConfig(**img["config"])
+    info = detect_and_load(root, foundation_model="none")
+    cam0 = camera_from_info(info.train_cameras[0], 1)
+    masks_k, heats_k = rel_cli.relevancy_maps(scene, dec, cam0, pos_d, neg_d, QUERY_THRESH,
+                                              raster, dev)
+    masks_k, heats_k = masks_k.cpu(), heats_k.cpu()
+    # where a frame's time goes: the card's part (render, decode, relevancy,
+    # masks), then the host's (turbo and three PNGs a prompt)
+    prof = profile_request(lambda: rel_cli.relevancy_maps(
+        scene, dec, cam0, pos_d, neg_d, QUERY_THRESH, raster, dev), "relevancy_maps, camera 0")
+    t0 = time.perf_counter()
+    for k in range(len(labels)):
+        heat, mask = turbo(heats_k[k].numpy()), masks_k[k].numpy()[..., None].astype(np.float32)
+        for img_ in (heat, mask.repeat(3, -1), heat * mask + 0.3 * heat * (1 - mask)):
+            encode_png(img_)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"# relevancy frame breakdown: card part wall {prof['wall_ms']:.2f} ms (busy "
+          f"{prof['busy_ms']:.2f}), host part {host_ms:.1f} ms ({gpu})", flush=True)
+    rep["image"].update(card_wall_ms=prof["wall_ms"], card_busy_ms=prof["busy_ms"],
+                        host_ms=host_ms)
+    out_dir = os.path.join(model, "relevancy")
+    for k, label in enumerate(labels):  # the CLI's camera-0 files are these maps
+        heat = turbo(heats_k[k].numpy())
+        with open(os.path.join(out_dir, "heatmap", label, cam0.name + ".png"), "rb") as f:
+            if f.read() != encode_png(heat):
+                fail(f"relevancy CLI heat map '{label}' camera 0 differs from relevancy_maps")
+    with torch.no_grad():
+        fmap = render(cam0, means=scene.means, quats=scene.quats, scales=scene.scales,
+                      opacities=scene.opacities, semantic_features=scene.semantic_features,
+                      feature_mode=True, bg_color=torch.zeros(3, device=dev), config=raster,
+                      device=dev).render
+        rel_k = max_across_levels(grounding.decode_map_rows(dec, fmap)[None], pos_d, neg_d)[0]
+        dec_cpu = feature_decoder_from_state({k: v.cpu() for k, v in dec.state_dict().items()},
+                                             cpu)
+        rel_c = max_across_levels(grounding.decode_map_rows(dec_cpu, fmap.cpu())[None],
+                                  torch.as_tensor(pos), torch.as_tensor(neg))[0]
+    rep["camera0"] = {}
+    for k, label in enumerate(labels):
+        raw_k, vm_k = heatmap_to_mask(rel_k[k], QUERY_THRESH)
+        if not (torch.equal(vm_k.cpu(), heats_k[k])
+                and torch.equal(majority_smooth(raw_k).cpu(), masks_k[k])):
+            fail(f"relevancy_maps camera 0 '{label}' differs from its steps run one by one")
+        raw_c, vm_c = heatmap_to_mask(rel_c[k], QUERY_THRESH)
+        cmp = flip_tolerant_compare(heats_k[k], vm_c, f"relevancy heat map, camera 0, '{label}' "
+                                    "(card vs the same functions on CPU tensors)")
+        # the mask thresholds vm stretched by 2 / (max - min): a flip is explained where
+        # the CPU's stretched value lies within the stretched heat-map error of the
+        # threshold; a threshold flip moves at most the 7x7 majority windows holding it
+        span = float(vm_c.max() - vm_c.min())
+        out_c = torch.clamp((vm_c - vm_c.min()) / (span + 1e-9) * 2.0 - 1.0, 0.0, 1.0)
+        band = 4.0 * cmp["max_abs_err"] / max(span, 1e-30) + 1e-6
+        flipped = raw_k.cpu() != raw_c
+        flips = int(flipped.sum())
+        unexplained = int((flipped & ((out_c - QUERY_THRESH).abs() > band)).sum())
+        smooth_flips = int((masks_k[k] != majority_smooth(raw_c)).sum())
+        if unexplained or smooth_flips > 49 * flips:
+            fail(f"relevancy mask camera 0 '{label}': {flips} threshold flips ({unexplained} "
+                 f"farther than {band:.3g} from the threshold), {smooth_flips} after the "
+                 f"majority smoothing, of {raw_c.numel()} pixels")
+        rep["camera0"][label] = dict(heat=cmp, heat_span=span, threshold_band=band,
+                                     threshold_flips=flips, smoothed_flips=smooth_flips,
+                                     selected_px=int(masks_k[k].sum()))
+    print(f"# relevancy camera 0 vs CPU: {rep['camera0']}", flush=True)
+    del fmap, rel_k, rel_c
+
+    # -- (b) --video along the interpolated path -------------------------------
+    vid, launches = counted(lambda: rel_cli.run(model, root, TRAIN_STEPS, text_embeds=npz,
+                                                resolution=1, video=True,
+                                                video_frames=QUERY_VIDEO_FRAMES, device=dev))
+    if vid["frames"] != QUERY_VIDEO_FRAMES or launches.get("blend_forward", 0) < vid["frames"]:
+        fail(f"relevancy --video: {vid['frames']} frames, launches {launches}")
+    names = [f"{label}.mp4" for label in labels]
+    mp4 = "written" if vid["videos"] else f"skipped (no cv2 on this machine): {names}"
+    print(f"# relevancy --video: {vid['frames']} frames, {vid['frames_per_s']:.3f} frames/s, "
+          f"mp4 {mp4}, launches {launches} ({gpu})", flush=True)
+    rep["video"] = dict(frames=vid["frames"], frames_per_s=vid["frames_per_s"], mp4=mp4,
+                        launches=launches)
+
+    # -- (c) pcd mode over all the Gaussians, with the neighbour vote -----------
+    pcd = rel_cli.run(model, root, TRAIN_STEPS, text_embeds=npz, pcd=True, device=dev)
+    print(f"# relevancy --pcd_mode: {scene.num_gaussians} Gaussians, selected "
+          f"{pcd['selected']}, seconds {pcd['seconds']} ({gpu})", flush=True)
+    rep["pcd"] = dict(selected=pcd["selected"], seconds=pcd["seconds"])
+    means = scene.means
+    t0 = time.perf_counter()
+    big = knn_with_indices(means, QUERY_VOTE_K, row_block=4096, col_block=16384)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    small = knn_with_indices(means, QUERY_VOTE_K)
+    same_rows = bool(torch.equal(small[0], big[0]))
+    rows_differ = int((torch.sort(small[1], 1).values != torch.sort(big[1], 1).values)
+                      .any(1).sum())
+    print(f"# KNN k={QUERY_VOTE_K} over {scene.num_gaussians} points: 1024x4096 blocks "
+          f"{pcd['seconds']['knn']:.2f} s (in the CLI), 4096x16384 blocks {big_s:.2f} s; "
+          f"distances equal {same_rows}, rows whose index sets differ {rows_differ} ({gpu})",
+          flush=True)
+    rep["knn"] = dict(cli_blocks_s=pcd["seconds"]["knn"], big_blocks_s=big_s,
+                      distances_equal=same_rows, index_rows_differ=rows_differ)
+    del big, small
+    # the vote on a subset, card against CPU, at a radius from the data
+    sub = torch.as_tensor(np.sort(np.random.default_rng(0).choice(
+        scene.num_gaussians, QUERY_SUBSET, replace=False)), device=dev)
+    xyz = means[sub]
+    with torch.no_grad():
+        rel_pts = grounding.point_relevancy(
+            grounding.decode_features_chunked(dec, scene.semantic_features[sub]), pos_d, neg_d)
+    mask = rel_pts[:, 0] > QUERY_THRESH
+    d_card, i_card = knn_with_indices(xyz, QUERY_VOTE_K)
+    radius = float(torch.sqrt(torch.median(d_card[:, QUERY_VOTE_RANK - 1])))
+    vote = dict(k=QUERY_VOTE_K, radius=radius, min_votes=QUERY_VOTE_MIN)
+    m_card = grounding.smooth_point_mask(xyz, mask, **vote).cpu()
+    d_cpu, i_cpu = knn_with_indices(xyz.cpu(), QUERY_VOTE_K)
+    m_cpu = grounding.smooth_point_mask(xyz.cpu(), mask.cpu(), **vote)
+    flips = torch.nonzero(m_card != m_cpu).flatten().tolist()
+    r2 = radius * radius
+    near = (((d_cpu - r2).abs() <= 1e-5 * r2) | ((d_card.cpu() - r2).abs() <= 1e-5 * r2)).any(1)
+    off_radius = [i for i in flips if not bool(near[i])]
+    print(f"# neighbour vote on {QUERY_SUBSET} points (k {QUERY_VOTE_K}, radius {radius:.5f} = "
+          f"median distance to the {QUERY_VOTE_RANK}th neighbour, min votes {QUERY_VOTE_MIN}): "
+          f"{int(mask.sum())} selected before, card {int(m_card.sum())}, CPU {int(m_cpu.sum())}; "
+          f"flips {len(flips)} {flips[:20]}, all at the radius {not off_radius}", flush=True)
+    if off_radius or int(m_cpu.sum()) in (0, int(mask.sum())):
+        fail(f"the neighbour vote: card and CPU differ off the radius at {off_radius[:20]} "
+             f"(or the vote kept all or none: CPU {int(m_cpu.sum())} of {int(mask.sum())})")
+    rep["vote"] = dict(vote, points=QUERY_SUBSET, selected=int(mask.sum()),
+                       card=int(m_card.sum()), cpu=int(m_cpu.sum()), flips=flips)
+
+    # -- (d) evaluate on a labelme folder of two cameras -------------------------
+    gt_dir = write_labelme(os.path.join(qdir, "labels"), QUERY_GT_CAMERAS, labels, QUERY_GT_W,
+                           QUERY_GT_H, seed=5)
+    gt, _, _ = eval_iou.load_lerf_gt(gt_dir)
+    checks = {}
+
+    def on_frame(idx, decoded, result):
+        d_cpu = decoded.cpu()
+        ann, lbl = gt[idx], result["labels"]
+        p = pos[[labels.index(l) for l in lbl]]
+        ious = eval_iou.eval_frame_iou(d_cpu, p, neg, ann, lbl)
+        hits = eval_iou.eval_frame_localization(d_cpu, p, neg, ann, lbl)
+        checks[idx] = dict(iou_diff=float(np.max(np.abs(np.subtract(ious, result["ious"])))),
+                           hits_card=result["loc_hits"], hits_cpu=hits)
+
+    summ, launches = counted(lambda: eval_cli.run(model, root, gt_dir, TRAIN_STEPS,
+                                                  text_embeds=npz, device=dev,
+                                                  on_frame=on_frame))
+    summ_clip = eval_cli.run(model, root, gt_dir, TRAIN_STEPS, clip_ckpt=clip_path, bpe=bpe,
+                             device=dev)
+    print(f"# evaluate: {len(summ['frames'])} frames at {QUERY_GT_W}x{QUERY_GT_H}, mIoU "
+          f"{summ['miou']:.4f}, loc {summ['loc_acc']:.3f}, {summ['seconds_per_frame']:.3f} s a "
+          f"frame; with --clip_ckpt {summ_clip['seconds_per_frame']:.3f} s a frame; CPU "
+          f"recomputation {checks}; launches {launches} ({gpu})", flush=True)
+    for idx, c in checks.items():
+        # a heat map's threshold flip moves an IoU by about 1 / union
+        if c["iou_diff"] > 1e-3 or c["hits_card"] != c["hits_cpu"]:
+            fail(f"evaluate frame {idx}: card vs CPU recomputation {c}")
+    if [r["ious"] for r in summ["frames"].values()] != [
+            r["ious"] for r in summ_clip["frames"].values()]:
+        fail("evaluate: --clip_ckpt and --text_embeds from the same checkpoint disagree")
+    if launches.get("blend_forward", 0) < len(summ["frames"]):
+        fail(f"evaluate: K5 launched {launches} for {len(summ['frames'])} frames")
+    rep["evaluate"] = dict(miou=summ["miou"], loc_acc=summ["loc_acc"],
+                           seconds_per_frame=summ["seconds_per_frame"],
+                           clip_seconds_per_frame=summ_clip["seconds_per_frame"], cpu=checks)
+
+    # -- (e) edit: the three operations ------------------------------------------
+    with torch.no_grad():
+        decoded = grounding.decode_features_chunked(dec, scene.semantic_features)
+        e = pos_d / pos_d.norm(dim=-1, keepdim=True)
+        sims = (decoded / decoded.norm(dim=-1, keepdim=True)) @ e[1]
+    thr = float(torch.median(sims))  # about half the Gaussians
+    del decoded
+    edits = {}
+    for op in ("color_func", "deletion", "extraction"):
+        cfg = qedit.EditConfig(objects=list(labels), operation=op, targets=[labels[1]],
+                               threshold=thr, color_func="lambda c: np.clip(1.0 - c, 0, 1)")
+        out = os.path.join(qdir, f"edit_{op}.ply")
+        t0 = time.perf_counter()
+        r = edit_cli.run(model, cfg, npz, TRAIN_STEPS, out, device=dev)
+        seconds = time.perf_counter() - t0
+        back = GaussianScene.from_ply(out)
+        if back.num_gaussians != r["n_out"]:
+            fail(f"edit {op}: the PLY holds {back.num_gaussians}, not {r['n_out']}")
+        edits[op] = dict(selected=r["selected"], n_out=r["n_out"], seconds=seconds)
+    n = scene.num_gaussians
+    if (edits["deletion"]["n_out"] + edits["extraction"]["n_out"] != n
+            or edits["color_func"]["n_out"] != n or not 0 < edits["deletion"]["selected"] < n):
+        fail(f"edit: {edits}")
+    print(f"# edit (threshold {thr:.4f}, target '{labels[1]}'): {edits}; deleted + extracted = "
+          f"{edits['deletion']['n_out'] + edits['extraction']['n_out']} = N ({gpu})", flush=True)
+    rep["edit"] = edits
+    return rep
+
+
 def encode_png_paeth(a: np.ndarray) -> bytes:
     """(H, W, 3) uint8 → an RGB PNG whose every row has filter 4 (Paeth),
     the filter that libpng and PIL choose for most rows of a photograph."""
@@ -1802,6 +2120,108 @@ def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     return report
 
 
+# phase 15: the two TPU probes' kernels (P1 vpu_chain, P2 slab_chain)
+PROBE_OPS = 18  # operations an element and application, in either chain (each mul, add,
+# sub, min, neg, exp2, log1p, compare or select one)
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in units in the last place (float32 bit patterns)."""
+    a, b = got.float().view(torch.int32).long(), want.float().view(torch.int32).long()
+    return int((a - b).abs().max())
+
+
+def probe_entry(fn, plain, x: torch.Tensor, reps: int, what: str, exact: bool) -> dict:
+    """One probe shape: the kernel against its plain version (bit for bit,
+    or within 1 ulp where `exact` is False) and against a second launch
+    (bit-identical), with the kernel's and the plain version's device time
+    per call (torch.profiler) and CUDA-events time, and the bound: each
+    input read once and each output written once at 3.35 TB/s, or
+    PROBE_OPS operations an element and application at 67 TFLOP/s."""
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"{what}: two launches differ at {int((got != again).sum())} values")
+    ulps = _ulps(got, want)
+    if ulps > (0 if exact else 1) or not torch.isfinite(got.float()).all():
+        fail(f"{what}: {ulps} ulps from its plain version")
+    elems = x.numel()
+    r = with_bound(dict(
+        shape=list(x.shape), dtype=str(x.dtype).split(".")[-1], reps=reps,
+        ms=device_ms(fn), events_ms=cuda_ms(fn, 50), plain_ms=device_ms(plain, iters=5),
+        plain_events_ms=cuda_ms(plain, 5, warmup=1),
+        bytes_ms=2 * elems * x.element_size() / HBM_BYTES_PER_S * 1e3,
+        ops_ms=PROBE_OPS * elems * reps / FP32_OPS_PER_S * 1e3,
+        max_abs_err=float((got.float() - want.float()).abs().max()), ulps=ulps,
+        bit_identical=True))
+    r["element_chains_per_s"] = elems * reps / (r["ms"] * 1e-3)
+    print(f"# {what}: {r}", flush=True)
+    return r
+
+
+def probes_phase(dev: torch.device, gpu: str) -> list:
+    """Phase 15: the probes' entry points (vpu_probe.main, slab_probe.main,
+    the counted path), then P1 at the TPU block (reps 1) and at the rate
+    shape (RATE_SHAPE x RATE_REPS), P2 at every slab, both types, each
+    checked and timed by probe_entry. Returns the kernels-line entries."""
+    from gags_torch import probes
+    from gags_torch.probes import slab_probe, vpu_probe
+
+    torch.cuda.synchronize()
+    probes.reset_launch_counts()
+    vpu_main, slab_main = (m.main(["--device", str(dev)]) for m in (vpu_probe, slab_probe))
+    torch.cuda.synchronize()
+    launches = dict(probes.launch_counts)
+    print(f"# probes' entry points: launches {launches} ({gpu})", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{name} was not launched by its probe's entry point")
+    p1 = {}
+    shapes = (((vpu_probe.R, vpu_probe.C), 1), (vpu_probe.RATE_SHAPE, vpu_probe.RATE_REPS))
+    for shape, reps in shapes:
+        for dtype in vpu_probe.DTYPES:
+            x = vpu_probe.probe_input(shape, dtype, dev)
+            label = f"{str(dtype).split('.')[-1]} {shape[0]}x{shape[1]} reps={reps}"
+            p1[label] = probe_entry(lambda: vpu_probe.vpu_chain(x, reps),
+                                    lambda: vpu_probe.vpu_chain_plain(x, reps), x, reps,
+                                    f"P1 vpu_chain {label}", exact=dtype == torch.bfloat16)
+    p2 = {}
+    for dtype in vpu_probe.DTYPES:
+        x = vpu_probe.probe_input((slab_probe.P, slab_probe.G), dtype, dev)
+        for slab in slab_probe.SLABS:
+            label = f"{str(dtype).split('.')[-1]} slab={slab}"
+            p2[label] = probe_entry(lambda: slab_probe.slab_chain(x, slab),
+                                    lambda: slab_probe.slab_chain_plain(x), x, slab_probe.REPS,
+                                    f"P2 slab_chain {label}", exact=True)
+    rate = {d: p1[f"{d} {vpu_probe.RATE_SHAPE[0]}x{vpu_probe.RATE_SHAPE[1]} "
+                  f"reps={vpu_probe.RATE_REPS}"]["element_chains_per_s"]
+            for d in ("float32", "bfloat16")}
+    print(f"# P1 at the rate shape: bf16 / f32 element-chain rate "
+          f"{rate['bfloat16'] / rate['float32']:.3f} ({gpu})", flush=True)
+    keep = ("ms", "events_ms", "plain_ms", "plain_events_ms", "bound_ms", "bound_by",
+            "max_abs_err", "ulps", "element_chains_per_s")
+    head1, head2 = p1[f"float32 {vpu_probe.R}x{vpu_probe.C} reps=1"], p2["float32 slab=None"]
+    timing = ("ms, plain_ms: device time per call (torch.profiler); events_ms, plain_events_ms: "
+              "back-to-back calls between CUDA events")
+    return [
+        {"name": "vpu_chain", "id": "P1", "route": "cuda",
+         "source": "gags_torch/probes/csrc/vpu_chain.cu", "replaces": "scripts/vpu_probe.py:36",
+         "launches": launches["vpu_chain"], "check": "bit for bit (bf16), <= 1 ulp (f32)",
+         "max_abs_err": max(r["max_abs_err"] for r in p1.values()),
+         **{k: head1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "events_ms")},
+         "library_ms": None, "timing": timing,
+         "bf16_over_f32_rate": rate["bfloat16"] / rate["float32"], "main_s": vpu_main,
+         "by_shape": {k: {kk: v[kk] for kk in keep} for k, v in p1.items()}},
+        {"name": "slab_chain", "id": "P2", "route": "cuda",
+         "source": "gags_torch/probes/csrc/slab_chain.cu", "replaces": "scripts/slab_probe.py:71",
+         "launches": launches["slab_chain"], "check": "bit for bit",
+         "max_abs_err": max(r["max_abs_err"] for r in p2.values()),
+         **{k: head2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "events_ms")},
+         "library_ms": None, "timing": timing, "main_s": slab_main,
+         "by_slab": {k: {kk: v[kk] for kk in keep} for k, v in p2.items()}},
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1811,6 +2231,7 @@ def main() -> int:
     from gags_torch.models.decoders import FeatureDecoder
     from gags_torch.models.weights import scene_from_arrays
     from gags_torch.core.sh import sh_colors
+    from gags_torch import _kernels, probes
     from gags_torch.splat import kernels, tiles
     from gags_torch.splat.projection import project_gaussians
     from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext, rasterize
@@ -1827,7 +2248,7 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    logs = kernels.build_all()
+    logs = _kernels.build(list(kernels.SOURCES) + list(probes.SOURCES))
     print(f"# {len(logs)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     for log in logs.values():
         for line in ptxas_summary(log):
@@ -2009,8 +2430,9 @@ def main() -> int:
     serve_k5 = dict(chunk=cfg.chunk, args=(
         geom_p, cols_f.contiguous(), binned.inst_gid, binned.tile_starts, binned.tile_counts,
         torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w))
-    train_kernels, options = train_phase(
-        dev, gpu, lambda root, model: options_phase(root, model, dev, gpu, serve_k5))
+    train_kernels, (options, query) = train_phase(
+        dev, gpu, lambda root, model: (options_phase(root, model, dev, gpu, serve_k5),
+                                       query_phase(root, model, dev, gpu)))
     del serve_k5, cols_f
 
     # -- 10-13. RGB pretraining, K8; 14. GAS on its scene and model --------------
@@ -2024,7 +2446,10 @@ def main() -> int:
     k1 = next(r for r in train_kernels if r["id"] == "K1")
     k1["by_width"] = {"GAD C=16": {k: k1[k] for k in k1_rgb}, "RGB C=3": k1_rgb}
 
-    # -- 15. report --------------------------------------------------------------
+    # -- 15. the probes' kernels P1 and P2 -------------------------------------------
+    probe_kernels = probes_phase(dev, gpu)
+
+    # -- 16. report --------------------------------------------------------------
     f16 = k5["features"]
     keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2090,7 +2515,9 @@ def main() -> int:
                                                  "autotune", "launches")}
                        for k, r in render_runs.items()},
     })
+    kernels_line["kernels"].extend(probe_kernels)
     print(f"# GAS report: {json.dumps(gas_report)}")
+    print(f"# query report: {json.dumps(query)}")
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")

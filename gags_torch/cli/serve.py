@@ -39,7 +39,7 @@ import torch
 
 from gags_torch import resolve_device
 from gags_torch.core.camera import Camera
-from gags_torch.models.decoders import FeatureDecoder
+from gags_torch.models.decoders import FeatureDecoder, feature_decoder_from_state
 from gags_torch.models.weights import load_decoder_state
 from gags_torch.query.grounding import decode_map_rows
 from gags_torch.query.relevancy import heatmap_to_mask, majority_smooth, max_across_levels
@@ -242,12 +242,8 @@ def load_server(model_path, iteration, text_embeds=None, device="cuda", autotune
     scene = GaussianScene.from_ply(ply, device=dev)
     if scene.semantic_features is None:
         raise ValueError(f"{ply}: no semantic_* fields")
-    state = load_decoder_state(os.path.join(model_path, "decoders.pt"))["feature_decoder"]
-    decoder = FeatureDecoder(
-        in_dim=state["d0.weight"].shape[1], hidden=state["d0.weight"].shape[0],
-        output_dim=state["d8.weight"].shape[0], device=dev,
-    )
-    decoder.load_state_dict(state)
+    decoder = feature_decoder_from_state(
+        load_decoder_state(os.path.join(model_path, "decoders.pt"))["feature_decoder"], dev)
     text = None
     if text_embeds:
         data = np.load(text_embeds)

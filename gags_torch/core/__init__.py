@@ -6,7 +6,7 @@ from gags_torch.core.camera import (
     look_at,
     world_to_view,
 )
-from gags_torch.core.sh import SH_C0, eval_sh, rgb_to_sh, sh_colors
+from gags_torch.core.sh import SH_C0, eval_sh, rgb_to_sh, sh_colors, sh_to_rgb
 from gags_torch.core.transforms import inverse_sigmoid, quat_to_rotmat
 
 __all__ = [
@@ -20,6 +20,7 @@ __all__ = [
     "eval_sh",
     "rgb_to_sh",
     "sh_colors",
+    "sh_to_rgb",
     "inverse_sigmoid",
     "quat_to_rotmat",
 ]

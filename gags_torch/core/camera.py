@@ -85,6 +85,15 @@ class Camera:
         t = self.viewmat[:3, 3]
         return -(R.T @ t)
 
+    def resized(self, width: int, height: int) -> "Camera":
+        """The camera rendering at another resolution: fx and cx scaled by
+        width / self.width, fy and cy by height / self.height."""
+        sx = width / self.width
+        sy = height / self.height
+        scale = torch.tensor([[sx, 1.0, sx], [1.0, sy, sy], [1.0, 1.0, 1.0]],
+                             dtype=self.K.dtype, device=self.K.device)
+        return dataclasses.replace(self, K=self.K * scale, width=int(width), height=int(height))
+
     def to(self, device) -> "Camera":
         return dataclasses.replace(
             self, viewmat=self.viewmat.to(device), K=self.K.to(device)

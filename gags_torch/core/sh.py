@@ -80,3 +80,6 @@ def sh_colors(deg: int, sh: torch.Tensor, means: torch.Tensor, campos: torch.Ten
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / SH_C0
 
+
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * SH_C0 + 0.5

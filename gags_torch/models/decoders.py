@@ -74,3 +74,12 @@ class ScaleDecoder(nn.Module):
             x = F.relu(getattr(self, f"d{i}")(x))
         x = getattr(self, f"d{self.n_layers - 1}")(x)
         return torch.softmax(x.float(), dim=-1)
+
+
+def feature_decoder_from_state(state: dict, device="cpu") -> FeatureDecoder:
+    """A FeatureDecoder of the widths a d0..d8 state dict carries, loaded
+    from it, on `device`, in eval mode."""
+    dec = FeatureDecoder(in_dim=state["d0.weight"].shape[1], hidden=state["d0.weight"].shape[0],
+                         output_dim=state["d8.weight"].shape[0], device=device)
+    dec.load_state_dict(state)
+    return dec.eval()

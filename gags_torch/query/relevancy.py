@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 DEFAULT_NEGATIVES = ("object", "things", "stuff", "texture")
@@ -90,3 +91,12 @@ def majority_smooth(mask: torch.Tensor, scale: int = 3) -> torch.Tensor:
     )
     total = (y1 - y0)[:, None] * (x1 - x0)[None, :]
     return (2 * ones > total).to(torch.uint8)
+
+
+def iou(mask_pred, mask_gt) -> float:
+    """Intersection over union of two boolean masks (numpy or tensors);
+    0 where both are empty."""
+    mask_pred, mask_gt = np.asarray(mask_pred), np.asarray(mask_gt)
+    inter = np.logical_and(mask_gt, mask_pred).sum()
+    union = np.logical_or(mask_gt, mask_pred).sum()
+    return float(inter) / float(union) if union else 0.0

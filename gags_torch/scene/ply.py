@@ -225,7 +225,7 @@ def write_gaussian_ply(
         fields[name] = np.zeros(n, np.float32)
     for i in range(3):
         fields[f"f_dc_{i}"] = sh[:, 0, i].astype(np.float32)
-    rest = sh[:, 1:, :].transpose(0, 2, 1).reshape(n, -1)  # channel-major
+    rest = sh[:, 1:, :].transpose(0, 2, 1).reshape(n, 3 * (k - 1))  # channel-major
     for i in range(rest.shape[1]):
         fields[f"f_rest_{i}"] = rest[:, i].astype(np.float32)
     fields["opacity"] = opacities_raw.reshape(n).astype(np.float32)

@@ -1,6 +1,5 @@
-"""Colormaps for visual outputs (numpy; a copy of the rendering subset of
-gags_tpu.utils.colormaps): turbo, float and depth maps, and the PCA
-feature visualisation."""
+"""Colormaps for visual outputs (numpy; a copy of gags_tpu.utils.colormaps):
+turbo, float, depth and boolean maps, and the PCA feature visualisation."""
 
 from __future__ import annotations
 
@@ -58,3 +57,10 @@ def apply_pca_colormap(
     hi = y[ok].max(0) if ok.any() else y.max(0)
     rgb = np.clip((y - lo) / np.maximum(hi - lo, 1e-9), 0, 1)
     return rgb.reshape(h, w, 3), proj
+
+
+def apply_boolean_colormap(mask: np.ndarray) -> np.ndarray:
+    """(H, W) mask → (H, W, 3): white where set, black elsewhere."""
+    out = np.zeros((*mask.shape, 3), np.float32)
+    out[mask.astype(bool)] = 1.0
+    return out

@@ -51,6 +51,10 @@ def test_port_imports_with_jax_blocked():
         "import gags_torch.cli.train_rgb, gags_torch.rgb.train, gags_torch.knn\n"
         "import gags_torch.scene.densify, gags_torch.utils.metrics\n"
         "import gags_torch.cli.render, gags_torch.splat.autotune, gags_torch.utils.timing\n"
+        "import gags_torch.cli.relevancy, gags_torch.cli.evaluate, gags_torch.cli.edit\n"
+        "import gags_torch.query.clip_editor, gags_torch.query.alpha_encoder\n"
+        "import gags_torch.utils.pcd, gags_torch.utils.pose_paths, gags_torch.utils.video\n"
+        "import gags_torch.probes.vpu_probe, gags_torch.probes.slab_probe\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

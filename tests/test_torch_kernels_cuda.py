@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from gags_torch.probes import slab_probe, vpu_probe
 from gags_torch.splat import kernels
 from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext, rasterize
 from gags_torch.utils.synthetic import make_camera, make_scene
@@ -589,3 +590,25 @@ def test_blend_forward_needles_and_faint_splats(dev, aligned):
     err = (got - want).abs()
     assert float(err.mean()) <= 1e-5
     assert float((err > 2e-5 + 1e-4 * want.abs()).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("reps", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_vpu_chain_matches_plain(dev, dtype, reps):
+    """P1 bit for bit (one rounding per op on both sides), a ragged tail
+    included, and bit-identical on a second launch."""
+    x = vpu_probe.probe_input((vpu_probe.R, vpu_probe.C + 3), dtype, dev)
+    got = vpu_probe.vpu_chain(x, reps)
+    assert torch.equal(got, vpu_probe.vpu_chain_plain(x, reps))
+    assert torch.equal(got, vpu_probe.vpu_chain(x, reps))
+
+
+@pytest.mark.parametrize("slab_rows", slab_probe.SLABS + (3,), ids=lambda s: f"slab{s}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_slab_chain_matches_plain(dev, dtype, slab_rows):
+    """P2 bit for bit for every slab, and on a block of no whole 16-byte
+    accesses."""
+    x = vpu_probe.probe_input((slab_probe.P, slab_probe.G), dtype, dev)
+    assert torch.equal(slab_probe.slab_chain(x, slab_rows), slab_probe.slab_chain_plain(x))
+    odd = vpu_probe.probe_input((37, 13), dtype, dev)
+    assert torch.equal(slab_probe.slab_chain(odd, slab_rows), slab_probe.slab_chain_plain(odd))

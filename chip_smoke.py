@@ -95,6 +95,26 @@ Phases, each of which fails the run:
      decoded map, and once more with --clip_ckpt --bpe (the same IoUs);
      (e) gags_torch.cli.edit, color_func / deletion / extraction at the
      median similarity: the PLYs read back, deleted + extracted = N;
+ 9d. reference interop, the train-step tuner, the profile, the viewer
+     (phase 7's scene and model dir): (a) its chkpnt40 in the reference's
+     layout (a 13-tuple chkpnt40.pth: the PLY's geometry, the trained
+     features, a real torch.optim.Adam state dict; decoder_chkpnt40.pth and
+     scale_decoder_chkpnt40.pth as 1x1-conv state dicts), then
+     cli.train_gad.run with start_checkpoint, autotune_train, profile and a
+     free viewer_port for iterations 41-60, the launch counts set to 0 just
+     before and read just after; (b) the first iteration is 41, its loss
+     equal (rtol 1e-4) to iteration 41 of a --resume run from
+     chkpnt40/state.pt with the same parameters before the first update,
+     K1-K4 launched every step, the loss finite, the tuner's two times and
+     winner printed and the winner saved in the model dir, the Chrome trace
+     naming blend_forward_kernel (K1); (c) a viewer client connected just
+     before the first step sends one 1280x720 camera: the frame equals a
+     direct rasterize byte for byte, K5 and K6 launched; (d)
+     make_surface_scene(300_000, 1280, 720, seed=3, opaque_frac=0.7): K5
+     with exit_stats against its plain version as in 9b (b), the share of
+     tiles that stop early (> 0), K5's device time there and on the fog
+     scene make_scene(300_000); the scene as a reference 12-tuple, 5 GAD
+     steps warm-started from it on phase 7's cameras from iteration 1;
  10. RGB pretraining: write a COLMAP scene to a temporary directory with
      the port's own writers (ground-truth PNGs of make_scene(300_000,
      seed=0, extent=3.0) with SH-3 colours rendered by K5 from eight
@@ -149,6 +169,13 @@ Phases, each of which fails the run:
      gags_torch.cli.train_gad.run on the RGB snapshot PLY and the GAS
      output; (e) gags_torch.cli.encode_text.run with a small merge table,
      its npz served by load_server on (d)'s model: one /relevancy reply;
+     (f) gags_torch.cli.metrics on (a)'s renders with the scene's PNGs as
+     gt/ and seeded random VGG16 / LPIPS-head files in torchvision's key
+     layout, cuDNN's TF32 switched on before the call (the CLI turns it
+     off): each view's PSNR, SSIM and LPIPS against the same functions on
+     CPU tensors (rtol 1e-6, atol 1e-6, rtol 1e-6; LPIPS at least 1e-3,
+     and a control with TF32 convolutions that must miss), seconds per
+     image;
  15. the probes' kernels P1 vpu_chain and P2 slab_chain (the TPU probes
      scripts/vpu_probe.py and scripts/slab_probe.py): their entry points
      (vpu_probe.main, slab_probe.main) with the launch counts set to 0
@@ -170,6 +197,7 @@ from __future__ import annotations
 import base64
 import gzip
 import json
+import math
 import os
 import re
 import subprocess
@@ -1406,6 +1434,341 @@ def query_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     return rep
 
 
+# phase 9d: reference interop, the train-step tuner, the profile and the
+# viewer on phase 7's fixture and model dir; the trained-statistics scene
+WARM_FROM, WARM_TO = TRAIN_STEPS, 60  # iterations 41-60 (the profile takes 50-60)
+LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-7  # tests/test_torch_train_step.py's loss tolerance
+SURFACE_N, SURFACE_SEED, SURFACE_OPAQUE = 300_000, 3, 0.7
+SURFACE_GAD_STEPS = 5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_reference_tuple(path: str, means, sh, opacities_raw, scales_raw, quats, iteration: int,
+                          features=None) -> None:
+    """The reference's `torch.save((gaussian_model.capture(), iteration))`:
+    nn.Parameters, the densification buffers, a real Adam state dict (one
+    step on zero gradients: moments 0, parameters unchanged), the spatial
+    lr scale (a numpy.float64, as getNerfppNorm gives it), and the semantic
+    features for a 13-tuple."""
+    def param(a):
+        return torch.nn.Parameter(torch.as_tensor(np.ascontiguousarray(a, np.float32)))
+
+    sh = np.asarray(sh, np.float32)
+    params = [param(means), param(sh[:, :1]), param(sh[:, 1:]), param(scales_raw), param(quats),
+              param(np.asarray(opacities_raw, np.float32)[:, None])]
+    opt = torch.optim.Adam([{"params": [p], "lr": 1e-3} for p in params], eps=1e-15)
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    n = params[0].shape[0]
+    args = (3, *params, torch.zeros(n), torch.zeros(n, 1), torch.zeros(n, 1), opt.state_dict(),
+            np.float64(4.0))
+    if features is not None:
+        args += (param(features),)
+    torch.save((args, iteration), path)
+
+
+def write_reference_decoder(path: str, state: dict) -> None:
+    """A d0..dK nn.Linear state dict as the reference's 1x1-Conv2d file."""
+    sd = {}
+    for k, v in state.items():
+        i, kind = k[1:].split(".")
+        sd[f"decoder.{2 * int(i)}.{kind}"] = (v[:, :, None, None] if kind == "weight" else v).cpu()
+    torch.save({"module_state_dict": sd, "optimizer_state_dict": {}}, path)
+
+
+def viewer_message(viewmat: np.ndarray, w: int, h: int, fovx: float, fovy: float) -> bytes:
+    """A SIBR camera message: the wire carries the view matrix transposed,
+    with its y and z columns flipped."""
+    wire = np.asarray(viewmat, np.float32).T.copy()
+    wire[:, 1] *= -1
+    wire[:, 2] *= -1
+    msg = dict(resolution_x=w, resolution_y=h, train=True, fov_x=fovx, fov_y=fovy, z_near=0.01,
+               z_far=100.0, shs_python=False, rot_scale_python=False, keep_alive=True,
+               scaling_modifier=1.0, view_matrix=wire.flatten().tolist(),
+               view_projection_matrix=wire.flatten().tolist())
+    raw = json.dumps(msg).encode()
+    return len(raw).to_bytes(4, "little") + raw
+
+
+def surface_phase(root: str, tmp: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 9d (d): K5 with exit_stats on make_surface_scene at 1280x720
+    against its plain version (as phase 9b (b)), the share of tiles that
+    stop early (> 0) and K5's device time there and on the fog scene of
+    the same size; then the scene as a reference 12-tuple, warm-started for
+    SURFACE_GAD_STEPS GAD steps on phase 7's cameras from iteration 0."""
+    from gags_torch.cli.train_gad import RunConfig, run
+    from gags_torch.splat import kernels
+    from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext
+    from gags_torch.utils.synthetic import make_camera, make_scene, make_surface_scene
+
+    cam = make_camera(WIDTH, HEIGHT, device=dev)
+    cfg = RasterizeConfig(aligned=False, budget_factor=16)
+    out = {}
+    surf = make_surface_scene(SURFACE_N, WIDTH, HEIGHT, seed=SURFACE_SEED,
+                              opaque_frac=SURFACE_OPAQUE)
+    fog = make_scene(SURFACE_N, seed=0, extent=3.0)
+    for label, raw in (("surface", surf), ("fog", fog)):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        _, b, geom, tx, ty = _prepare(t["means"], t["quats"], t["scales"], t["opacities"],
+                                      cam.viewmat, cam.K, WIDTH, HEIGHT, cfg)
+        if int(b.overflow) != 0:
+            fail(f"{label} scene: binning overflow {int(b.overflow)}")
+        perm = order_ext(b.order.long())
+        cols = torch.cat([t["features"], torch.zeros((1, 16), device=dev)])[perm].contiguous()
+        args = (geom[perm].contiguous(), cols, b.inst_gid, b.tile_starts, b.tile_counts,
+                torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w)
+        img, st = kernels.blend_forward(*args, exit_stats=True, chunk=cfg.chunk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_p, st_p = kernels.blend_forward_plain(*args, exit_stats=True, chunk=cfg.chunk)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(img, kernels.blend_forward(*args)):
+            fail(f"K5 exit_stats changes the {label} scene's image")
+        r = dict(instances=int(b.num_valid), plain_ms=plain_ms,
+                 **exit_stats_compare(st, st_p, f"K5 {label} scene"),
+                 **flip_tolerant_compare(img, img_p, f"K5 {label} scene C=16"))
+        r["early_stop_share"] = r["tiles_stopped_early"] / r["tiles"]
+        r["chunks_done_share"] = r["chunks_done"] / max(r["chunks_total"], 1)
+        fn = lambda: kernels.blend_forward(*args, exit_stats=True, chunk=cfg.chunk)  # noqa: E731
+        r.update(ms=device_ms(fn), events_ms=cuda_ms(fn, 20),
+                 ms_no_stats=device_ms(lambda: kernels.blend_forward(*args)))
+        out[label] = r
+        del t, b, geom, args, img, st, img_p, st_p, cols
+        torch.cuda.empty_cache()
+    s, f = out["surface"], out["fog"]
+    print(f"# 9d surface scene ({SURFACE_N} splats, 1280x720): {s['tiles_stopped_early']} of "
+          f"{s['tiles']} tiles stop early (share {s['early_stop_share']:.4f}), chunks done "
+          f"{s['chunks_done_share']:.4f}; K5 exit_stats {s['ms']:.4f} ms device (events "
+          f"{s['events_ms']:.4f}), {s['instances']} instances; fog scene: share "
+          f"{f['early_stop_share']:.4f}, K5 {f['ms']:.4f} ms, {f['instances']} instances ({gpu})",
+          flush=True)
+    if s["tiles_stopped_early"] <= 0:
+        fail(f"surface scene: no tile stopped early: {s}")
+
+    # the scene as a reference 12-tuple (raw opacity and scales), 5 GAD steps
+    ck = os.path.join(tmp, "surface_chkpnt.pth")
+    op = surf["opacities"].astype(np.float64)
+    write_reference_tuple(ck, surf["means"], surf["sh"], np.log(op / (1.0 - op)),
+                          np.log(surf["scales"]), surf["quats"], 30000)
+    seen, metrics = [], []
+    rc = RunConfig(source_path=root, model_path=os.path.join(tmp, "surface_model"),
+                   start_checkpoint=ck, resolution=2, iterations=SURFACE_GAD_STEPS,
+                   save_iterations="", test_iterations="", device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    run(rc, on_step=lambda it, st, m: (seen.append(it), m is not None and metrics.append(m)))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    losses = [float(m["loss"]) for m in metrics]
+    print(f"# 9d surface scene as a 12-tuple: iterations {seen[0] + 1}-{seen[-1]}, losses "
+          f"{losses}, launches {launches} ({gpu})", flush=True)
+    if seen[0] != 0 or len(losses) != SURFACE_GAD_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"surface warm start: first iteration {seen[0] + 1}, losses {losses}")
+    for name in ("blend_forward_aligned", "blend_backward", "sorted_segment_sum",
+                 "dense_segment_sum"):
+        if launches.get(name, 0) <= 0:
+            fail(f"{name} was not launched in the surface scene's GAD steps")
+    out["gad"] = dict(losses=losses, launches=launches)
+    return out
+
+
+def warm_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 9d (a-c) on phase 7's scene dir and model dir: its chkpnt40 in
+    the reference's layout (a 13-tuple with the PLY's geometry, the trained
+    features and a real Adam state dict; both decoders as 1x1-conv files),
+    then cli.train_gad.run with start_checkpoint, autotune_train, profile
+    and a viewer_port for iterations 41-60, a viewer client connected and
+    one 1280x720 camera sent just before the first step; (d) the surface
+    scene. Returns the report."""
+    import shutil
+    import socket
+
+    from gags_torch.cli.train_gad import RunConfig, run
+    from gags_torch.core.camera import intrinsics_from_fov
+    from gags_torch.core.sh import sh_colors
+    from gags_torch.gad.train import GadConfig
+    from gags_torch.scene.ply import read_gaussian_ply
+    from gags_torch.splat import kernels
+    from gags_torch.splat.rasterizer import RasterizeConfig, rasterize
+    from gags_torch.utils.synthetic import make_camera
+
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "reference")
+        os.makedirs(ref)
+        blob = torch.load(os.path.join(model, f"chkpnt{WARM_FROM}", "state.pt"),
+                          map_location="cpu", weights_only=True)
+        geo = read_gaussian_ply(os.path.join(root, "pretrained.ply"))
+        ck = os.path.join(ref, f"chkpnt{WARM_FROM}.pth")
+        write_reference_tuple(ck, geo["means"], geo["sh"], geo["opacities_raw"],
+                              geo["scales_raw"], geo["quats"], WARM_FROM,
+                              features=blob["features"].numpy())
+        write_reference_decoder(os.path.join(ref, f"decoder_chkpnt{WARM_FROM}.pth"),
+                                blob["decoder"])
+        write_reference_decoder(os.path.join(ref, f"scale_decoder_chkpnt{WARM_FROM}.pth"),
+                                blob["scale_decoder"])
+
+        # the --resume run from chkpnt40/state.pt: iteration 41's loss
+        resumed = os.path.join(tmp, "resumed")
+        shutil.copytree(os.path.join(model, f"chkpnt{WARM_FROM}"),
+                        os.path.join(resumed, f"chkpnt{WARM_FROM}"))
+        first = {}
+
+        def first_params(key):
+            def on_step(it, state, m):
+                if m is None:
+                    first[key] = dict(it=it, features=state.features.detach().clone(),
+                                      decoder={k: v.clone() for k, v in
+                                               state.decoder.state_dict().items()},
+                                      scale={k: v.clone() for k, v in
+                                             state.scale_decoder.state_dict().items()})
+                elif it == WARM_FROM + 1:
+                    first[key]["loss"] = float(m["loss"])
+            return on_step
+
+        run(RunConfig(source_path=root, model_path=resumed,
+                      ply_path=os.path.join(root, "pretrained.ply"), resolution=2,
+                      iterations=WARM_FROM + 1, save_iterations="", test_iterations="",
+                      resume=True, device="cuda"), on_step=first_params("resume"))
+
+        # the warm start with the tuner, the profile and the viewer
+        cam = make_camera(WIDTH, HEIGHT)
+        fovx = 2 * math.atan(WIDTH / (2 * float(cam.K[0, 0])))
+        fovy = 2 * math.atan(HEIGHT / (2 * float(cam.K[1, 1])))
+        port, reply, clients = free_port(), {}, []
+        events, metrics, at_first = [], [], {}
+        resume_cb = first_params("warm")
+
+        def on_step(it, state, m):
+            resume_cb(it, state, m)
+            if m is None:
+                at_first.update({k: v for k, v in kernels.launch_counts.items() if v})
+                c = socket.create_connection(("127.0.0.1", port), timeout=600)
+                c.sendall(viewer_message(cam.viewmat.numpy(), WIDTH, HEIGHT, fovx, fovy))
+
+                def read():
+                    img = b""
+                    while len(img) < WIDTH * HEIGHT * 3:
+                        chunk = c.recv(WIDTH * HEIGHT * 3 - len(img))
+                        if not chunk:
+                            break
+                        img += chunk
+                    n = int.from_bytes(c.recv(4), "little")
+                    reply.update(img=img, verify=c.recv(n))
+                    c.close()
+                t = threading.Thread(target=read, daemon=True)
+                t.start()
+                clients.append(t)
+            else:
+                metrics.append(m)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        warm = os.path.join(tmp, "warm")
+        rc = RunConfig(source_path=root, model_path=warm, start_checkpoint=ck, resolution=2,
+                       iterations=WARM_TO, save_iterations=str(WARM_TO), test_iterations="",
+                       profile=True, autotune_train=True, viewer_port=port, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        run(rc, on_step=on_step)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        for t in clients:
+            t.join(timeout=60)
+
+        # (b) the checks
+        w = first["warm"]
+        if w["it"] != WARM_FROM:
+            fail(f"warm start: first iteration {w['it'] + 1}, not {WARM_FROM + 1}")
+        r = first["resume"]
+        same = (torch.equal(w["features"], r["features"])
+                and all(torch.equal(w["decoder"][k], r["decoder"][k]) for k in r["decoder"])
+                and all(torch.equal(w["scale"][k], r["scale"][k]) for k in r["scale"]))
+        if not same:
+            fail("warm start and --resume differ in their parameters before the first update")
+        if abs(w["loss"] - r["loss"]) > LOSS_ATOL + LOSS_RTOL * abs(r["loss"]):
+            fail(f"iteration {WARM_FROM + 1}: warm-start loss {w['loss']} vs --resume "
+                 f"{r['loss']} (rtol {LOSS_RTOL})")
+        losses = [float(m["loss"]) for m in metrics]
+        if len(losses) != WARM_TO - WARM_FROM or not np.all(np.isfinite(losses)):
+            fail(f"warm start losses {losses}")
+        loop = {k: v - at_first.get(k, 0) for k, v in launches.items() if v - at_first.get(k, 0)}
+        for name in ("blend_forward_aligned", "blend_backward", "sorted_segment_sum",
+                     "dense_segment_sum"):
+            if loop.get(name, 0) < WARM_TO - WARM_FROM:
+                fail(f"{name} launched {loop.get(name, 0)} times in the warm start's "
+                     f"{WARM_TO - WARM_FROM} steps")
+        tuned = json.load(open(os.path.join(warm, "train_autotune.json")))
+        saved = GadConfig.load(warm)
+        if len(tuned["times_ms"]) != 2 or tuned["winner"] != f"fsup={saved.fused_supervision}":
+            fail(f"train autotune: {tuned}, saved fused_supervision {saved.fused_supervision}")
+        trace_path = os.path.join(warm, "profile", "trace_iter50-60.json")
+        with open(trace_path) as f:
+            trace = f.read()
+        if "blend_forward_kernel" not in trace:
+            fail(f"{trace_path} names no blend_forward_kernel (K1)")
+        step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(1, len(events))]
+        # step i is iteration 41 + i: 41 also serves the viewer's frame, 50-59 are
+        # traced and 60 follows the trace's export
+        prof_steps = set(range(50 - WARM_FROM - 1, 60 - WARM_FROM - 1))
+        steady = [t for i, t in enumerate(step_ms) if 0 < i < 50 - WARM_FROM - 1]
+        report["warm_start"] = dict(
+            first_iteration=w["it"] + 1, loss=w["loss"], resume_loss=r["loss"],
+            loss_rel_diff=abs(w["loss"] - r["loss"]) / abs(r["loss"]), losses=losses,
+            tuner_ms=tuned["times_ms"], tuner_winner=tuned["winner"],
+            step_median_ms=float(np.median(steady)), steps_timed=len(steady),
+            profiled_step_median_ms=float(np.median([step_ms[i] for i in sorted(prof_steps)])),
+            run_s=run_s, launches_setup_and_tuner=at_first, launches_loop=loop,
+            trace_mb=len(trace) / 2 ** 20)
+        print(f"# 9d warm start from a reference 13-tuple: first iteration {w['it'] + 1}, loss "
+              f"{w['loss']:.6f} vs --resume {r['loss']:.6f}; tuner {tuned['times_ms']} ms, "
+              f"winner {tuned['winner']}; step median {report['warm_start']['step_median_ms']:.3f}"
+              f" ms over {len(steady)} unprofiled steps; launches set-up + tuner {at_first}, "
+              f"loop {loop}; trace {report['warm_start']['trace_mb']:.1f} MiB ({gpu})", flush=True)
+        del trace
+
+        # (c) the viewer's frame against a direct rasterize of the same camera
+        if reply.get("verify") != root.encode() or len(reply.get("img", b"")) != WIDTH * HEIGHT * 3:
+            fail(f"viewer: no full frame came back ({len(reply.get('img', b''))} bytes)")
+        for name in ("blend_forward", "expand_gid"):
+            if loop.get(name, 0) <= 0:
+                fail(f"viewer: {name} was not launched for its frame")
+        g = {k: torch.as_tensor(v, device=dev) for k, v in geo.items()}
+        vm, K = cam.viewmat.to(dev), torch.as_tensor(
+            intrinsics_from_fov(fovx, fovy, WIDTH, HEIGHT), device=dev)
+        with torch.no_grad():
+            colors = sh_colors(3, g["sh"], g["means"], -vm[:3, :3].T @ vm[:3, 3])
+            res = rasterize(g["means"], g["quats"], torch.exp(g["scales_raw"]),
+                            torch.sigmoid(g["opacities_raw"]), colors, vm, K, WIDTH, HEIGHT,
+                            background=torch.zeros(3, device=dev),
+                            config=RasterizeConfig(aligned=False), device=dev)
+        want = (np.clip(res.image.cpu().numpy(), 0, 1) * 255).astype(np.uint8).tobytes()
+        n_diff = sum(a != b for a, b in zip(reply["img"], want))
+        if n_diff:
+            fail(f"viewer frame differs from a direct rasterize at {n_diff} bytes")
+        report["viewer"] = dict(bytes=len(want), equal=True, launches={
+            k: loop.get(k, 0) for k in ("blend_forward", "expand_gid")})
+        print(f"# 9d viewer: a 1280x720 frame equal to a direct rasterize byte for byte; "
+              f"launches {report['viewer']['launches']} ({gpu})", flush=True)
+        del g, res, blob, geo
+
+        # (d) the trained-statistics scene
+        report["surface"] = surface_phase(root, tmp, dev, gpu)
+    return report
+
+
 def encode_png_paeth(a: np.ndarray) -> bytes:
     """(H, W, 3) uint8 → an RGB PNG whose every row has filter 4 (Paeth),
     the filter that libpng and PIL choose for most rows of a photograph."""
@@ -1838,6 +2201,141 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.cpu() - want).abs().max() / want.abs().max())
 
 
+# phase 14(f): the metrics CLI on stage A's renders (PSNR / SSIM rtol 1e-6 /
+# atol 1e-6 as tests/test_torch_metrics.py; LPIPS rtol 1e-6 as
+# tests/test_torch_lpips.py against the torch reference forward, no atol,
+# so the check is relative at any LPIPS; a TF32 control must fail it)
+METRIC_TOL = {"PSNR": (1e-6, 0.0), "SSIM": (0.0, 1e-6), "LPIPS": (1e-6, 0.0)}
+
+
+def random_vgg_files(root: str, seed: int = 0) -> tuple:
+    """Seeded random VGG16 `features` (He-normal weights, so activations
+    stay O(1) through the 13 convolutions, as trained ones do) and LPIPS
+    linear heads drawn from U(0, 1), the scale of the trained heads (LPIPS
+    of distinct images is then O(0.1)), in torchvision's key layout."""
+    from gags_torch.utils.lpips import LPIPS_CHANNELS, _vgg_features
+
+    gen = torch.Generator().manual_seed(seed)
+    feat = {}
+    for k, v in _vgg_features().state_dict().items():
+        if k.endswith("weight"):
+            std = math.sqrt(2.0 / (v.shape[1] * v.shape[2] * v.shape[3]))
+            feat[f"features.{k}"] = torch.randn(v.shape, generator=gen) * std
+        else:
+            feat[f"features.{k}"] = torch.randn(v.shape, generator=gen) * 0.01
+    lin = {f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=gen)
+           for i, c in enumerate(LPIPS_CHANNELS["vgg"])}
+    paths = (os.path.join(root, "vgg16_features.pth"), os.path.join(root, "lpips_vgg_lin.pth"))
+    torch.save(feat, paths[0])
+    torch.save(lin, paths[1])
+    return paths
+
+
+def metrics_phase(root: str, model: str, it: int, names, gpu: str) -> dict:
+    """gags_torch.cli.metrics on the card over <model>/train/ours_<it>: the
+    renders against the scene's ground-truth PNGs (copied as gt/), LPIPS
+    from random VGG16 files, with cuDNN's TF32 switched on before the call
+    (the CLI must turn it off); each view held to the same functions on CPU
+    tensors."""
+    import shutil
+
+    from gags_torch.cli import metrics as metrics_cli
+    from gags_torch.utils.image import read_rgb
+    from gags_torch.utils.lpips import lpips_from_checkpoints
+    from gags_torch.utils.metrics import psnr, ssim
+
+    method = os.path.join(model, "train", f"ours_{it}")
+    os.makedirs(os.path.join(method, "gt"), exist_ok=True)
+    for n in names:
+        shutil.copy(os.path.join(root, "images", n + ".png"),
+                    os.path.join(method, "gt", n + ".png"))
+    vgg, lin = random_vgg_files(os.path.dirname(model))
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = metrics_cli.run([model], split="train", vgg_ckpt=vgg, lpips_lin_ckpt=lin,
+                              device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if torch.backends.cudnn.allow_tf32 is not True:
+            fail("the metrics CLI did not restore cuDNN's TF32 setting")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    results, per_view = out[model]
+    pv = per_view[f"ours_{it}"]
+    if sorted(pv["PSNR"]) != sorted(n + ".png" for n in names):
+        fail(f"metrics: views {sorted(pv['PSNR'])}")
+    cpu_lpips = lpips_from_checkpoints(vgg, lin, device="cpu")
+    worst = {k: 0.0 for k in METRIC_TOL}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for n in names:
+            r = torch.as_tensor(read_rgb(os.path.join(method, "renders", n + ".png")).astype(
+                np.float32) / 255.0)
+            g = torch.as_tensor(read_rgb(os.path.join(method, "gt", n + ".png")).astype(
+                np.float32) / 255.0)
+            want = {"PSNR": float(psnr(r, g)), "SSIM": float(ssim(r, g)),
+                    "LPIPS": float(cpu_lpips(r, g))}
+            for k, (rtol, atol) in METRIC_TOL.items():
+                got = pv[k][n + ".png"]
+                worst[k] = max(worst[k], abs(got - want[k]) / max(abs(want[k]), 1e-30))
+                if not np.isfinite(got) or abs(got - want[k]) > atol + rtol * abs(want[k]):
+                    fail(f"metrics {k} of {n}: card {got} vs CPU {want[k]} "
+                         f"(rtol {rtol}, atol {atol})")
+    cpu_s = time.perf_counter() - t0
+    lpips_min = min(pv["LPIPS"].values())
+    if lpips_min < 1e-3:  # near 0, a relative check holds the card to nothing
+        fail(f"metrics: LPIPS {lpips_min}: the random heads are too weak to test LPIPS")
+    tf32_err = lpips_tf32_control(vgg, lin, method, names[0], cpu_lpips)
+    # where an image's time goes: the host's two PNG decodes, then LPIPS on the card
+    t0 = time.perf_counter()
+    pair = [read_rgb(os.path.join(method, sub, names[0] + ".png")) for sub in ("renders", "gt")]
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    card_lpips = lpips_from_checkpoints(vgg, lin, device="cuda")
+    ra, ga = (torch.as_tensor(x.astype(np.float32) / 255.0, device="cuda") for x in pair)
+    with torch.no_grad():
+        lpips_ms = cuda_ms(lambda: card_lpips(ra, ga), 3)
+    r = dict(views=len(names), seconds=secs, seconds_per_image=secs / len(names),
+             cpu_seconds_per_image=cpu_s / len(names), png_decode_ms=decode_ms,
+             lpips_card_ms=lpips_ms, results=results[f"ours_{it}"], max_rel_err_vs_cpu=worst,
+             lpips_tf32_rel_err=tf32_err)
+    print(f"# 14f metrics CLI over {len(names)} views at 1280x720 (PSNR, SSIM, LPIPS VGG16): "
+          f"{r['seconds_per_image']:.4f} s an image on the card (two PNG decodes {decode_ms:.1f} ms"
+          f" on the host, LPIPS {lpips_ms:.2f} ms on the card; CPU "
+          f"{r['cpu_seconds_per_image']:.2f} s), means {r['results']}, max relative error vs the CPU {worst}, "
+          f"LPIPS with TF32 convolutions {tf32_err:.3e} off ({gpu})", flush=True)
+    return r
+
+
+def lpips_tf32_control(vgg: str, lin: str, method: str, name: str, cpu_lpips) -> float:
+    """The LPIPS check's control: one view's LPIPS on the card with the
+    TF32-off switch taken out and cuDNN's TF32 on must miss the CPU's by
+    more than the check allows, or the check could not see a missing
+    switch. Returns that relative error."""
+    import contextlib
+
+    from gags_torch.utils import lpips as lpips_mod
+    from gags_torch.utils.image import read_rgb
+
+    a, b = (torch.as_tensor(read_rgb(os.path.join(method, sub, name + ".png")).astype(
+        np.float32) / 255.0) for sub in ("renders", "gt"))
+    with torch.no_grad():
+        want = float(cpu_lpips(a, b))
+        model = lpips_mod.lpips_from_checkpoints(vgg, lin, device="cuda")
+        switch, prev = lpips_mod._no_tf32, torch.backends.cudnn.allow_tf32
+        lpips_mod._no_tf32, torch.backends.cudnn.allow_tf32 = contextlib.nullcontext, True
+        try:
+            got = float(model(a.cuda(), b.cuda()))
+        finally:
+            lpips_mod._no_tf32, torch.backends.cudnn.allow_tf32 = switch, prev
+    err = abs(got - want) / abs(want)
+    if not err > METRIC_TOL["LPIPS"][0]:
+        fail(f"metrics: LPIPS with TF32 convolutions is {err:.3e} off the CPU, within the "
+             f"check's rtol {METRIC_TOL['LPIPS'][0]}: the check cannot see TF32")
+    return err
+
+
 def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     """Phase 14: GAS (scripts/GAS.sh) on the RGB phase's scene and model,
     then GAD on its output and text embeddings for the server. Returns the
@@ -1876,6 +2374,9 @@ def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
         if stage_a.get(name, 0) < len(names):
             fail(f"GAS stage A: {name} launched {stage_a.get(name, 0)} times for {len(names)} frames")
     report["stage_a_launches"] = stage_a
+
+    # -- 14f. image-quality metrics of stage A's renders ------------------------
+    report["metrics"] = metrics_phase(root, model, it, names, gpu)
 
     # -- 14b. depth samples, the card's maps against the CPU's bit for bit --
     t0 = time.perf_counter()
@@ -2430,10 +2931,16 @@ def main() -> int:
     serve_k5 = dict(chunk=cfg.chunk, args=(
         geom_p, cols_f.contiguous(), binned.inst_gid, binned.tile_starts, binned.tile_counts,
         torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w))
-    train_kernels, (options, query) = train_phase(
+    train_kernels, (options, query, warm) = train_phase(
         dev, gpu, lambda root, model: (options_phase(root, model, dev, gpu, serve_k5),
-                                       query_phase(root, model, dev, gpu)))
+                                       query_phase(root, model, dev, gpu),
+                                       warm_phase(root, model, dev, gpu)))
     del serve_k5, cols_f
+    ws, surf_gad = warm["warm_start"], warm["surface"]["gad"]["launches"]
+    for r in train_kernels:  # phase 9d's paths: warm start (tuner apart), surface scene
+        r["warm_start_launches"] = ws["launches_loop"].get(r["name"], 0)
+        r["tuner_launches"] = ws["launches_setup_and_tuner"].get(r["name"], 0)
+        r["surface_gad_launches"] = surf_gad.get(r["name"], 0)
 
     # -- 10-13. RGB pretraining, K8; 14. GAS on its scene and model --------------
     k8, k3_rgb, k1_rgb, k6_rgb, gas_report = rgb_phase(
@@ -2467,6 +2974,9 @@ def main() -> int:
                                   "events_ms", "timing")},
             "empty_launch_ms": empty_launch_ms,
             "gas_stage_a_launches": gas_report["stage_a_launches"].get("expand_gid", 0),
+            "viewer_launches": warm["viewer"]["launches"]["expand_gid"],
+            "warm_start_setup_launches": ws["launches_setup_and_tuner"].get("expand_gid", 0),
+            "surface_gad_launches": surf_gad.get("expand_gid", 0),
             "by_shape": {"serve": k6, "RGB aligned": k6_rgb},
         },
         {
@@ -2480,7 +2990,9 @@ def main() -> int:
             "bound_by": "bytes" if f16["bytes_ms"] >= f16["ops_ms"] else "operations",
             "library_ms": None, "timing": DEVICE_TIMING,
             "gas_stage_a_launches": gas_report["stage_a_launches"].get("blend_forward", 0),
+            "viewer_launches": warm["viewer"]["launches"]["blend_forward"],
             "by_option": options["k5"],
+            "by_scene": {k: v for k, v in warm["surface"].items() if k != "gad"},
             "by_channels": {
                 str(v["channels"]): {
                     "ms": v["ms"], "events_ms": v["events_ms"], "plain_ms": v["plain_ms"],
@@ -2518,6 +3030,7 @@ def main() -> int:
     kernels_line["kernels"].extend(probe_kernels)
     print(f"# GAS report: {json.dumps(gas_report)}")
     print(f"# query report: {json.dumps(query)}")
+    print(f"# warm-start report: {json.dumps(warm)}")
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")

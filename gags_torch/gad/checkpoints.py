@@ -54,11 +54,23 @@ def load_checkpoint(model_dir: str, step: int, template: TrainState) -> TrainSta
 
 
 def latest_checkpoint_step(model_dir: str) -> Optional[int]:
+    """N of the newest `chkpnt<N>/` in `model_dir`, None where there is none.
+
+    Raises ValueError when that directory holds no `state.pt` (an orbax
+    checkpoint of the JAX package, say): skipping it would serve an older
+    checkpoint's features as the newest."""
     if not os.path.isdir(model_dir):
         return None
     steps = [int(name[6:]) for name in os.listdir(model_dir)
              if name.startswith("chkpnt") and name[6:].isdigit()]
-    return max(steps) if steps else None
+    if not steps:
+        return None
+    path = os.path.join(model_dir, f"chkpnt{max(steps)}")
+    if not os.path.isfile(os.path.join(path, STATE_FILE)):
+        raise ValueError(
+            f"{path} is not a gags_torch checkpoint: it has no {STATE_FILE}. The port "
+            f"reads chkpnt<N>/{STATE_FILE} and decoders.pt, which its own train_gad writes")
+    return max(steps)
 
 
 def export_ply(model_dir: str, scene: GaussianScene, state: TrainState, step: int) -> str:

@@ -92,9 +92,9 @@ def polygon_to_mask(img_shape: Tuple[int, int], points) -> np.ndarray:
     is the polygon's last), where two edges meet in a tip at a vertex
     row the later one's x moves to one pixel short of the adjacent row's
     span, the crossings are sorted and each pair (a, b) fills round_up(a) ..
-    round_down(b). Held to PIL bit for bit on seeded convex and concave
-    polygons in tests/test_torch_eval_iou.py; a polygon that folds back
-    on itself along one segment can still differ by a pixel.
+    round_down(b). Held to PIL bit for bit in tests/test_torch_eval_iou.py
+    on seeded convex, concave, star and self-intersecting polygons and on
+    polygons that fold back on themselves.
     """
     h, w = int(img_shape[0]), int(img_shape[1])
     out = np.zeros((h, w), np.uint8)
@@ -134,11 +134,13 @@ def polygon_to_mask(img_shape: Tuple[int, int], points) -> np.ndarray:
         at_vertex = (t_ymin[act] == y) | (t_ymax[act] == y)
         xs0 = xs.copy()
         for c in np.nonzero(~dup & at_vertex & (dx[act] != 0))[0]:
-            # a tip: an earlier edge through the same vertex on the same side
+            # a tip: the first earlier sloped edge through the same vertex
+            # that reaches the adjacent row decides, on either side (edges
+            # that part there, or retrace this one, leave x as it is)
             cur = act[c]
             for o in np.nonzero(at_vertex[:c])[0]:
                 k = act[o]
-                if (dx[cur] > 0 and dx[k] <= 0) or (dx[cur] < 0 and dx[k] >= 0):
+                if dx[k] == 0:
                     continue
                 if _roundf(xs0[c]) != _roundf(xs0[o]):
                     continue

@@ -13,6 +13,8 @@ float32 convolution runs through cuDNN in TF32 unless
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -23,9 +25,18 @@ def psnr(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
 
 
 def _gaussian_window(size: int = 11, sigma: float = 1.5, device="cpu") -> torch.Tensor:
-    x = torch.arange(size, dtype=torch.float32, device=device) - size // 2
+    """The window's taps, computed on the CPU whatever `device` is: a CUDA
+    exp can differ from the CPU's in the last bit, and one ulp in a tap
+    moves a 720p SSIM by ~3e-6 (the variances are small differences of
+    large terms). Cached per device, so a training step copies nothing."""
+    return _window_on(size, float(sigma), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _window_on(size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    x = torch.arange(size, dtype=torch.float32) - size // 2
     g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
-    return g / torch.sum(g)
+    return (g / torch.sum(g)).to(device)
 
 
 def _filter2d_same(img: torch.Tensor, win: torch.Tensor) -> torch.Tensor:

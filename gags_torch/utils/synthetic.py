@@ -58,3 +58,6 @@ def make_camera(width: int, height: int, fov_deg: float = 60.0, dist: float = 0.
         height=height,
         name="synthetic",
     )
+
+
+from gags_torch.utils._surface_scene import make_surface_scene  # noqa: E402,F401

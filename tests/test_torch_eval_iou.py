@@ -62,6 +62,59 @@ def test_polygon_to_mask_corner_cases():
     assert not ev.polygon_to_mask((4, 4), np.zeros((0, 2))).any()
 
 
+def _folded(rng):
+    """A star (sorted angles) or self-intersecting (unsorted angles) polygon
+    of 11-34 float vertices, a radius each, rounded to 3 decimals, on an
+    image of 8-300 px a side: many fold back along an edge they retrace."""
+    h, w = (int(v) for v in rng.integers(8, 301, 2))
+    n = int(rng.integers(11, 35))
+    c = rng.uniform([0, 0], [w, h])
+    star = rng.random() < 0.5
+    ang = rng.uniform(0, 2 * np.pi, n)
+    if star:
+        ang = np.sort(ang)
+    r = rng.uniform(1, max(h, w) / 1.5, n)
+    return h, w, np.round(np.stack([c[0] + r * np.cos(ang), c[1] + r * np.sin(ang)], 1), 3)
+
+
+# Every polygon of _folded's first 6000 draws from default_rng(seed), seeds
+# 1-8 (48,000 polygons), on which the fill once differed from Pillow 12.1,
+# as (seed, draw index): a crossing at a vertex was moved toward the next
+# row's span though the first earlier sloped edge through that vertex
+# parts from it or retraces it, where Pillow leaves it.
+_FOLDED_DRAWS = [(1, 2209), (4, 540), (5, 3740), (6, 2105), (8, 908), (8, 2431)]
+_FOLDED_CASES = [
+    # the first one found: pixel (33, 0) was filled
+    (54, 14, [(7.032, 34.959), (1.46, 33.401), (-3.757, 34.378), (1.811, 33.163),
+              (-3.568, 32.129), (1.149, 30.314), (1.702, 26.891), (3.303, 29.23),
+              (7.478, 24.951), (8.103, 29.545), (10.76, 32.122)]),
+]
+
+
+def _draw(seed, index):
+    rng = np.random.default_rng(seed)
+    for _ in range(index + 1):
+        case = _folded(rng)
+    return case
+
+
+@pytest.mark.parametrize("case", range(len(_FOLDED_CASES) + len(_FOLDED_DRAWS)))
+def test_polygon_to_mask_folded_cases_equal_pil(case):
+    if case < len(_FOLDED_CASES):
+        h, w, pts = _FOLDED_CASES[case]
+    else:
+        h, w, pts = _draw(*_FOLDED_DRAWS[case - len(_FOLDED_CASES)])
+    np.testing.assert_array_equal(ev.polygon_to_mask((h, w), pts), _pil_fill(h, w, pts))
+
+
+def test_polygon_to_mask_folded_draws_equal_pil():
+    """The generator's first 200 draws from seed 0."""
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        h, w, pts = _folded(rng)
+        np.testing.assert_array_equal(ev.polygon_to_mask((h, w), pts), _pil_fill(h, w, pts))
+
+
 def _write_labelme(root, h=48, w=64, frames=(1, 3)):
     """frame_<i>.json in the LERF labelme layout: several labels, one label
     with two polygons (merged), float vertices."""

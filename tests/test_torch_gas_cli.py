@@ -249,3 +249,26 @@ def test_gas_modules_import_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_visualize_prompts_writes_a_panel_per_image(gas_run, tmp_path, monkeypatch, capsys):
+    """One 2x2 panel PNG per image from the render's depth maps and the
+    depth samples, with the prompt counts of gags_tpu's tool (same seed)."""
+    import gags_tpu.cli.visualize_prompts as jvis
+    from gags_torch.cli import visualize_prompts
+
+    root, model = gas_run["root"], gas_run["model"]
+    out = str(tmp_path / "vis")
+    paths = visualize_prompts.run(root, model, ITER, num_images=4, output=out)
+    lines = capsys.readouterr().out.strip().splitlines()
+    names = [os.path.splitext(ci.name)[0]
+             for ci in detect_and_load(root, foundation_model="none").train_cameras]
+    assert sorted(os.listdir(out)) == sorted(n + "_prompts.png" for n in names)
+    assert paths == [os.path.join(out, n + "_prompts.png") for n in names]
+    for p in paths:
+        with open(p, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    monkeypatch.setattr(sys, "argv", ["visualize_prompts", "-s", root, "-m", model,
+                                      "--iteration", str(ITER), "-o", str(tmp_path / "jvis")])
+    jvis.main()
+    assert capsys.readouterr().out.strip().splitlines() == lines

@@ -55,6 +55,9 @@ def test_port_imports_with_jax_blocked():
         "import gags_torch.query.clip_editor, gags_torch.query.alpha_encoder\n"
         "import gags_torch.utils.pcd, gags_torch.utils.pose_paths, gags_torch.utils.video\n"
         "import gags_torch.probes.vpu_probe, gags_torch.probes.slab_probe\n"
+        "import gags_torch.gad.interop, gags_torch.gad.autotune, gags_torch.utils.lpips\n"
+        "import gags_torch.utils.viewer, gags_torch.utils._surface_scene\n"
+        "import gags_torch.cli.metrics, gags_torch.cli.convert, gags_torch.cli.visualize_prompts\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -112,6 +115,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         rasterize_exit_stats(t["means"], t["quats"], t["scales"], t["opacities"],
                              t["features"], cam.viewmat, cam.K, 32, 16)
+    from gags_torch.cli import metrics as metrics_cli
+    from gags_torch.gad.interop import load_reference_checkpoint
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        metrics_cli.run(["/nonexistent"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_reference_checkpoint("/nonexistent.pth")
     # the CPU is taken only when asked for
     out = rasterize(t["means"], t["quats"], t["scales"], t["opacities"], t["features"],
                     cam.viewmat, cam.K, 32, 16, device="cpu")

@@ -4,6 +4,8 @@ The JAX state (after one warm-up step, so the Adam moments are non-zero)
 is carried into the port with models.weights.load_jax_train_state; both
 sides then take the same binned steps on the same batch."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,13 +54,19 @@ def _cfgs(**kw):
 
 
 def _setup(**kw):
+    p = _setup_parts(**kw)
+    return p["jstate"], p["jstep"], p["tstate"], p["tstep"]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_parts(kw_items):
+    """The JAX state after one warm-up step and its step, once per config:
+    the state is immutable and the step pure, so every caller may share
+    them (one interpret-mode compile instead of one per test)."""
     raw, feats, embed, seg = _inputs()
-    jcfg, tcfg = _cfgs(**kw)
-    craw = dict(means=raw["means"], quats=raw["quats"], scales_raw=np.log(raw["scales"]),
-                opacities_raw=np.log(raw["opacities"] / (1 - raw["opacities"])), sh=raw["sh"])
-    jscene = JScene(**{k: jnp.asarray(v) for k, v in craw.items()},
+    jcfg, _ = _cfgs(**dict(kw_items))
+    jscene = JScene(**{k: jnp.asarray(v) for k, v in _craw(raw).items()},
                     semantic_features=jnp.asarray(feats))
-    tscene = scene_from_arrays(**craw, semantic_features=feats)
     cam = make_camera(W, H)
     vm, K = cam.viewmat.numpy(), cam.K.numpy()
 
@@ -77,19 +85,31 @@ def _setup(**kw):
 
     # one JAX warm-up step, so that the carried Adam moments are non-zero
     jstate, _ = jstep(jstate, 1e-3, 0.0)
+    return jstate, jstep
 
+
+def _craw(raw):
+    return dict(means=raw["means"], quats=raw["quats"], scales_raw=np.log(raw["scales"]),
+                opacities_raw=np.log(raw["opacities"] / (1 - raw["opacities"])), sh=raw["sh"])
+
+
+def _setup_parts(**kw):
+    """Both packages' states from one JAX warm-up step (a fresh port state
+    each call), their steps, and the port's geometry, batch and config."""
+    jstate, jstep = _jax_parts(tuple(sorted(kw.items())))
+    return dict(jstate=jstate, jstep=jstep, **_port_parts(jstate, **kw))
+
+
+def _port_parts(jstate=None, **kw):
+    """The port's state, geometry, batch, config and step. The state is
+    carried over from `jstate`, or without it takes one warm-up step of
+    its own (so the Adam moments are non-zero either way)."""
+    raw, feats, embed, seg = _inputs()
+    _, tcfg = _cfgs(**kw)
+    tscene = scene_from_arrays(**_craw(raw), semantic_features=feats)
+    cam = make_camera(W, H)
+    vm, K = cam.viewmat.numpy(), cam.K.numpy()
     tstate = ttrain.create_train_state(tscene, tcfg, device="cpu")
-    opt = {}
-    for key, st in (("feat", jstate.opt_feat), ("dec", jstate.opt_dec),
-                    ("scale", jstate.opt_scale)):
-        adam = st[0]
-        mu, nu = jax.tree.map(np.asarray, (adam.mu, adam.nu))
-        opt[key] = (np.asarray(adam.count), mu, nu)
-    load_jax_train_state(
-        tstate, features=np.asarray(jstate.features),
-        decoder_params=jax.tree.map(np.asarray, jstate.decoder_params),
-        scale_params=jax.tree.map(np.asarray, jstate.scale_params),
-        opt_states=opt, step=int(jstate.step))
     tgeom = ttrain.frozen_geometry(tscene)
     tb = prepare_binning(tgeom["means"], tgeom["quats"], tgeom["scales"], torch.as_tensor(vm),
                          torch.as_tensor(K), W, H, tcfg.raster, opacities=tgeom["opacities"])
@@ -103,7 +123,21 @@ def _setup(**kw):
     def tstep(state, ew, rw):
         return tstep_fn(state, tgeom, tbatch, ew, rw)
 
-    return jstate, jstep, tstate, tstep
+    if jstate is None:
+        tstep(tstate, 1e-3, 0.0)
+    else:
+        opt = {}
+        for key, st in (("feat", jstate.opt_feat), ("dec", jstate.opt_dec),
+                        ("scale", jstate.opt_scale)):
+            adam = st[0]
+            mu, nu = jax.tree.map(np.asarray, (adam.mu, adam.nu))
+            opt[key] = (np.asarray(adam.count), mu, nu)
+        load_jax_train_state(
+            tstate, features=np.asarray(jstate.features),
+            decoder_params=jax.tree.map(np.asarray, jstate.decoder_params),
+            scale_params=jax.tree.map(np.asarray, jstate.scale_params),
+            opt_states=opt, step=int(jstate.step))
+    return dict(tstate=tstate, tstep=tstep, tgeom=tgeom, tbatch=tbatch, tcfg=tcfg)
 
 
 def _flax_params_as_torch(params):
@@ -218,3 +252,33 @@ def test_render_feature_map_decodes_the_rendered_map():
     torch.testing.assert_close(dec, state.decoder(fmap).detach())
     norms = torch.linalg.norm(dec, dim=-1)
     torch.testing.assert_close(norms, torch.ones_like(norms), rtol=1e-5, atol=1e-5)
+
+
+def test_autotune_returns_equivalent_step():
+    """gags_torch.gad.autotune on the CPU (force=True): both candidates are
+    timed, the winner is loss-equivalent to the base step (the tuner's
+    gate, rtol 1e-3) and trains, and its step tracks the JAX step from the
+    same state (rtol 1e-4 / atol 1e-7). Here rather than in
+    test_torch_train_autotune.py so that it shares this file's JAX compile."""
+    import copy
+    import dataclasses
+
+    from gags_torch.gad.autotune import autotune_train_step
+
+    parts = _setup_parts()
+    st, cfg, geom, batch = parts["tstate"], parts["tcfg"], parts["tgeom"], parts["tbatch"]
+    ew = cfg.entropy_w_early
+    times = {}
+    win_cfg, win_step = autotune_train_step(W, H, cfg, st, geom, batch, k=1, force=True,
+                                            verbose=False, times=times)
+    assert set(times) == {"fsup=True", "fsup=False"}  # both candidates timed
+    assert dataclasses.replace(win_cfg, fused_supervision=cfg.fused_supervision) == cfg
+    before = st.features.detach().clone()
+    st2 = copy.deepcopy(st)  # the tuner left the state as it found it
+    _, m_base = ttrain.make_train_step_binned(W, H, cfg)(st, geom, batch, ew, 0.0)
+    _, m_win = win_step(st2, geom, batch, ew, 0.0)
+    base, win = float(m_base["loss"]), float(m_win["loss"])
+    assert np.isfinite(win) and abs(win - base) / abs(base) <= 1e-3
+    assert float((st2.features.detach() - before).abs().sum()) > 0  # the winner's step trains
+    _, mj = parts["jstep"](parts["jstate"], ew, 0.0)
+    np.testing.assert_allclose(win, float(mj["loss"]), rtol=1e-4, atol=1e-7)

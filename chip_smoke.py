@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch / CUDA port (gags_torch) on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(one card; `python3 chip_smoke.py --nccl` on four cards runs only the
+NCCL check of `nccl_main`: gags_torch.parallel with one rank a card)
 
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
@@ -185,16 +187,40 @@ Phases, each of which fails the run:
      P1 in float32 within 1 ulp) and bit-identical on a second launch,
      with device time per call (torch.profiler), CUDA-events time, the
      plain version's times and the bound;
- 16. print {"kernels": [...]} with times, bounds and launch counts of
+ 16. multi-rank training and rendering (gags_torch.parallel) in phase 7's
+     temporary directory, after 9d, two ranks sharing the card over gloo
+     (every figure labelled so; none is a speed-up): (a)
+     gags_torch.cli.train_gad.run with devices=2 for 20 iterations into a
+     model dir of its own, rank 0 alone writing it, its on_step on rank 0
+     recording step times, losses and launches; its parameters after
+     iteration 1 (chkpnt1) against one process that accumulates the same
+     two cameras' gradients, halves them and takes the three Adam steps
+     (the first loss at rtol 2e-5; every parameter within 1e-6 but for
+     at most 1e-4 of them, sign flips of gradients within K4's atomic
+     rounding of zero, each within 2 lr); (b) the strip step on camera 0
+     at 640x360 (2 strips of 6 tile rows, 24 pad rows): losses of 2 steps
+     at rtol 2e-5, the raw gradients of each feature channel and decoder
+     tensor within 1e-4 of its largest, the features after 2 steps as in
+     (a), overflow 0; its median step and the per-step all_gathers and
+     reduce_scatter (bytes, ms); (c) make_gshard_render at the serve
+     configuration (1280x720, 250k, F = 16, 2 strips of 12 tile rows)
+     with K6 and with K7 + the cull against one-process rasterize at
+     phase 4's tolerance; (d) make_dp_render of the four cameras against
+     sequential renders, bit for bit; each kernel's launches inside the
+     ranks read around each path (the kernels line's
+     distributed_launches);
+ 17. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
-     stage-A launches) and P1-P2, the query report, then the card's name
-     and power limit, then the final {"ok": true, ...}.
+     stage-A launches; every kernel with its phase-16 launches) and P1-P2,
+     the query and multi-rank reports, then the card's name and power
+     limit, then the final {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 import gzip
 import json
 import math
@@ -1769,6 +1795,578 @@ def warm_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     return report
 
 
+# phase 16: multi-rank training and rendering (gags_torch.parallel) on
+# phase 7's fixture and model dir, two ranks sharing the one card over gloo
+# (NCCL takes one card a rank); no figure here is a speed-up figure
+
+MULTI_RANKS = 2
+MULTI_LABEL = "2 ranks sharing one H100 over gloo"
+DP_STEPS = 20
+GSHARD_TIMED = 8
+COLLECTIVE_REPS = 5
+# the multi-rank runs against one process: K4 adds with float atomics in
+# no fixed order, and Adam divides each gradient by its own running scale,
+# so a gradient within rounding of zero may move its parameter by up to
+# 2 lr a step; at most MULTI_FLIP_FRACTION of the parameters may, every
+# other one must agree within MULTI_ATOL
+MULTI_ATOL = 1e-6
+MULTI_FLIP_FRACTION = 1e-4
+# the strip step against one process: each feature channel and each
+# decoder tensor within this share of its largest gradient (K3 and K4 sum
+# per strip, then across the ranks)
+GSHARD_GRAD_RTOL = 1e-4
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class StepRecorder:
+    """on_step of the data-parallel trainer (pickled; it runs on rank 0):
+    a CUDA event (on the card) and the loss of every step and rank 0's
+    kernel launches over the loop, written to `path` as JSON after the last
+    step."""
+
+    def __init__(self, path: str, last: int, device: str):
+        self.path, self.last, self.device = path, last, torch.device(device)
+        self.marks, self.losses, self.start = [], [], None
+
+    def __call__(self, it, state, metrics):
+        from gags_torch.splat import kernels
+
+        if self.device.type == "cuda":
+            mark = torch.cuda.Event(enable_timing=True)
+            mark.record()
+        else:  # a rehearsal on the CPU
+            mark = time.perf_counter()
+        self.marks.append(mark)
+        if metrics is None:
+            self.start = dict(kernels.launch_counts)
+            return
+        self.losses.append(metrics["loss"].detach().clone())
+        if it == self.last:
+            _sync(self.device)
+            pairs = zip(self.marks, self.marks[1:])
+            ms = ([a.elapsed_time(b) for a, b in pairs] if self.device.type == "cuda"
+                  else [(b - a) * 1e3 for a, b in pairs])
+            with open(self.path, "w") as f:
+                json.dump(dict(
+                    step_ms=ms, losses=[float(x) for x in self.losses], pid=os.getpid(),
+                    launches={k: v - self.start[k] for k, v in kernels.launch_counts.items()}), f)
+
+
+def _synced_ms(fn, reps: int, dev: torch.device) -> list:
+    """Host-clock ms of `reps` calls of fn, each between synchronises (a
+    gloo collective waits on the host)."""
+    out = []
+    for _ in range(reps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _train_inputs(root: str, ply: str, dev: torch.device):
+    from gags_torch.gad.data import GadDataset
+    from gags_torch.gad.train import GadConfig, create_train_state, frozen_geometry
+    from gags_torch.scene.dataset import detect_and_load
+    from gags_torch.scene.gaussian_data import GaussianScene
+
+    cfg = GadConfig()
+    ds = GadDataset(detect_and_load(root).train_cameras, resolution=2)
+    scene = GaussianScene.from_ply(ply, device=dev)
+    state = create_train_state(scene, cfg, seed=0, device=dev)
+    return cfg, ds, state, frozen_geometry(scene)
+
+
+def _named_grads(state, features_grad) -> dict:
+    out = {"features": features_grad}
+    for mod in ("decoder", "scale_decoder"):
+        out.update({f"{mod}.{k}": p.grad for k, p in getattr(state, mod).named_parameters()})
+    return out
+
+
+def _one_process_step(cfg, ds, state, geom, cams, ew, rw, cache=None) -> float:
+    """One process on card 0: the cameras' gradients accumulated, divided
+    by their count, the three Adam steps (binned where `cache` is given).
+    Returns the mean loss."""
+    from gags_torch.gad.train import camera_loss
+    from gags_torch.parallel.sharding import train_params
+
+    loss = 0.0
+    for i in cams:
+        batch = {k: torch.as_tensor(v, device=state.device) for k, v in ds.batch(int(i)).items()}
+        if cache is not None:
+            batch.update(cache[int(i)])
+        total, _ = camera_loss(state, geom, batch, ew, rw, ds.width, ds.height, cfg,
+                               binned=cache is not None)
+        total.backward()
+        loss += float(total.detach()) / len(cams)
+    for p in train_params(state):
+        p.grad /= len(cams)
+    for opt in (state.opt_feat, state.opt_dec, state.opt_scale):
+        opt.step()
+    return loss
+
+
+def _checkpoint_params(path: str) -> dict:
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return {"features": blob["features"],
+            **{f"decoder.{k}": v for k, v in blob["decoder"].items()},
+            **{f"scale_decoder.{k}": v for k, v in blob["scale_decoder"].items()}}
+
+
+def _state_params(state) -> dict:
+    return {"features": state.features.detach(),
+            **{f"decoder.{k}": v for k, v in state.decoder.state_dict().items()},
+            **{f"scale_decoder.{k}": v for k, v in state.scale_decoder.state_dict().items()}}
+
+
+def multi_rank(ctx, root: str, ply: str, trained_ply: str, serve: tuple) -> dict:
+    """Phase 16 (b)-(d) on one of the ranks; the launch counts of each
+    distributed path are read around it, so rank 0's own references do not
+    count. serve: (Gaussians, width, height) of (c)."""
+    from gags_torch.gad.train import loss_weights
+    from gags_torch.parallel import (gshard_state, make_dp_render, make_gshard_render,
+                                     make_gshard_train_step, make_mesh, shard_gaussians)
+    from gags_torch.parallel.collectives import all_gather_tensor, reduce_scatter_tensor
+    from gags_torch.parallel.gshard import _real_rows, _strip_geometry
+    from gags_torch.scene.gaussian_data import GaussianScene
+    from gags_torch.splat import kernels
+    from gags_torch.splat.rasterizer import RasterizeConfig, rasterize
+    from gags_torch.utils.synthetic import make_camera, make_scene
+
+    dev, mesh, lead = ctx.device, make_mesh(), ctx.rank == 0
+    n_serve, width, height = serve
+    out = {}
+
+    # (b) the strip step at the train configuration, camera 0
+    cfg, ds, state, geom = _train_inputs(root, ply, dev)
+    w, h = ds.width, ds.height
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(0).items()}
+    ew, rw = loss_weights(1, cfg)
+    geom_l, _ = shard_gaussians(geom, state.features, mesh)
+    gs = gshard_state(state, mesh)
+    del state
+    step = make_gshard_train_step(mesh, w, h, cfg)
+    _sync(dev)
+    kernels.reset_launch_counts()
+    gs, m1 = step(gs, geom_l, batch, ew, rw)
+    full_grad = all_gather_tensor(gs.features.grad)
+    grads1 = {k: v.detach().cpu() for k, v in _named_grads(gs, full_grad).items()}
+    gs, m2 = step(gs, geom_l, batch, ew, rw)
+    _sync(dev)
+    out["gshard_launches"] = dict(kernels.launch_counts)
+    feats2 = all_gather_tensor(gs.features.detach())
+    step_ms = _synced_ms(lambda: step(gs, geom_l, batch, ew, rw), GSHARD_TIMED, dev)
+    rows = torch.zeros((geom_l["means"].shape[0], 9), device=dev)
+    feats_l = gs.features.detach()
+    colls = dict(
+        all_gather_rows=(_synced_ms(lambda: all_gather_tensor(rows), COLLECTIVE_REPS, dev),
+                         rows.numel() * 4 * MULTI_RANKS),
+        all_gather_features=(_synced_ms(lambda: all_gather_tensor(feats_l), COLLECTIVE_REPS,
+                                        dev), feats_l.numel() * 4 * MULTI_RANKS),
+        reduce_scatter_features=(_synced_ms(lambda: reduce_scatter_tensor(full_grad),
+                                            COLLECTIVE_REPS, dev), full_grad.numel() * 4))
+    strip_h = _strip_geometry(cfg.raster, h, MULTI_RANKS)[1]
+    if lead:
+        out["gshard"] = dict(
+            losses=[float(m1["loss"]), float(m2["loss"])],
+            overflow=[int(m1["overflow"]), int(m2["overflow"])],
+            grads=grads1,
+            features2=feats2.cpu(), step_ms=step_ms, strip_h=strip_h,
+            real_rows=[_real_rows(cfg.raster, h, MULTI_RANKS, r)[1] for r in range(MULTI_RANKS)],
+            collectives={k: dict(ms=float(np.median(v)), bytes=b) for k, (v, b) in colls.items()})
+    del gs, geom_l, full_grad, feats2, feats_l, rows, geom
+
+    # (c) the strip render at the serve configuration
+    raw = make_scene(n_serve, seed=0, extent=3.0)
+    g = {k: torch.as_tensor(raw[k], device=dev) for k in ("means", "quats", "scales", "opacities")}
+    colors = torch.as_tensor(raw["features"], device=dev)
+    cam = make_camera(width, height, device=dev)
+    g_l, c_l = shard_gaussians(g, colors, mesh)
+    renders = {}
+    for label, rcfg in (("K6", RasterizeConfig()),
+                        ("K7, cull", RasterizeConfig(fused_keys=True, tile_cull=True))):
+        render = make_gshard_render(mesh, width, height, colors.shape[1], rcfg)
+        _sync(dev)
+        kernels.reset_launch_counts()
+        img, alpha, ovf = render(g_l, c_l, cam.viewmat, cam.K)
+        _sync(dev)
+        renders[label] = dict(launches=dict(kernels.launch_counts), overflow=int(ovf),
+                              ms=float(np.median(_synced_ms(
+                                  lambda: render(g_l, c_l, cam.viewmat, cam.K), 5, dev))))
+        if lead:
+            one = rasterize(g["means"], g["quats"], g["scales"], g["opacities"], colors,
+                            cam.viewmat, cam.K, width, height,
+                            config=RasterizeConfig(aligned=False), device=dev)
+            renders[label].update(
+                image=flip_tolerant_compare(img, one.image,
+                                            f"strip render ({label}) vs one-process rasterize"),
+                alpha=flip_tolerant_compare(alpha, one.alpha,
+                                            f"strip render alpha ({label}) vs one-process"))
+    out["gshard_render"] = renders
+    del g, colors, g_l, c_l, img, alpha
+
+    # (d) the camera-parallel render: phase 7's four cameras, trained features
+    scene = GaussianScene.from_ply(trained_ply, device=dev)
+    gt = dict(means=scene.means, quats=scene.quats, scales=scene.scales,
+              opacities=scene.opacities)
+    vms = torch.stack([torch.as_tensor(ex.viewmat, device=dev) for ex in ds.examples])
+    Ks = torch.stack([torch.as_tensor(ex.K, device=dev) for ex in ds.examples])
+    bg = torch.zeros((scene.semantic_features.shape[1],), device=dev)
+    render = make_dp_render(mesh, w, h, cfg.raster)
+    _sync(dev)
+    kernels.reset_launch_counts()
+    imgs, alphas = render(gt, scene.semantic_features, vms, Ks, bg)
+    _sync(dev)
+    out["dp_render"] = dict(launches=dict(kernels.launch_counts), cameras=int(vms.shape[0]))
+    if lead:
+        one = dataclasses.replace(cfg.raster, aligned=False)
+        seq = [rasterize(gt["means"], gt["quats"], gt["scales"], gt["opacities"],
+                         scene.semantic_features, vms[i], Ks[i], w, h, background=bg,
+                         config=one, device=dev) for i in range(vms.shape[0])]
+        out["dp_render"]["bit_identical"] = all(
+            torch.equal(imgs[i], s.image) and torch.equal(alphas[i], s.alpha)
+            for i, s in enumerate(seq))
+    return out
+
+
+def _sum_launches(results, key) -> dict:
+    out = {}
+    for r in results:
+        for k, v in r[key].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _flip_tolerant_params(got: dict, want: dict, lr: dict, what: str, steps: int = 1) -> dict:
+    """max |got - want| over each tensor, and the elements beyond
+    MULTI_ATOL: at most MULTI_FLIP_FRACTION of them, each within 2 lr a
+    step of its group plus MULTI_ATOL (an Adam step of a flipped sign)."""
+    res, beyond, total = {}, 0, 0
+    for k, t in want.items():
+        d = (got[k].float() - t.float().cpu()).abs()
+        n_bad = int((d > MULTI_ATOL).sum())
+        res[k] = dict(max_abs_diff=float(d.max()), beyond_atol=n_bad)
+        if float(d.max()) > 2 * steps * lr[k.split(".")[0]] + MULTI_ATOL:
+            fail(f"{what}: {k} differs by {float(d.max())} (more than 2 lr a step)")
+        beyond += n_bad
+        total += d.numel()
+    summary = dict(max_abs_diff=max(v["max_abs_diff"] for v in res.values()), beyond_atol=beyond,
+                   elements=total, bit_identical=beyond == 0 and all(
+                       torch.equal(got[k].float(), want[k].float().cpu()) for k in want))
+    print(f"# {what}: {summary}", flush=True)
+    if beyond > MULTI_FLIP_FRACTION * total:
+        fail(f"{what}: {beyond} of {total} parameters beyond {MULTI_ATOL}")
+    return summary
+
+
+def multi_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 16 on phase 7's scene dir and model dir: (a) cli.train_gad.run
+    with devices=2 (gloo, both ranks on this card) for DP_STEPS iterations,
+    its parameters after iteration 1 against one process that accumulates
+    the same two cameras' gradients, halves them and takes the three Adam
+    steps; (b) the strip step (2 strips of 6 tile rows at 640x360, 24 pad
+    rows) against the one-process step: loss, raw gradients, features
+    after 2 steps; (c) the strip render at the serve configuration against
+    one-process rasterize; (d) make_dp_render of the four cameras against
+    sequential renders. Returns the report."""
+    from gags_torch.cli.train_gad import RunConfig, _bin_cache, run
+    from gags_torch.gad.train import loss_weights, make_train_step
+    from gags_torch.parallel import launch
+
+    ply = os.path.join(root, "pretrained.ply")
+    trained_ply = os.path.join(model, "point_cloud", f"iteration_{TRAIN_STEPS}", "point_cloud.ply")
+    report = dict(backend="gloo", ranks=MULTI_RANKS, label=MULTI_LABEL)
+    print(f"# phase 16: {MULTI_RANKS} ranks over gloo on one card ({MULTI_LABEL}; {gpu})",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- (a) the data-parallel trainer ------------------------------------
+        dp_model = os.path.join(tmp, "model_dp")
+        rec = os.path.join(tmp, "steps.json")
+        rc = RunConfig(source_path=root, model_path=dp_model, ply_path=ply, resolution=2,
+                       iterations=DP_STEPS, save_iterations=f"1,{DP_STEPS}",
+                       test_iterations="", device=dev.type, devices=MULTI_RANKS,
+                       dist_backend="gloo", deadline=600)
+        t0 = time.perf_counter()
+        final = run(rc, on_step=StepRecorder(rec, DP_STEPS, dev.type))
+        run_s = time.perf_counter() - t0
+        with open(rec) as f:
+            steps = json.load(f)
+        if final.step != DP_STEPS or len(steps["losses"]) != DP_STEPS or not np.all(
+                np.isfinite(steps["losses"])):
+            fail(f"data-parallel trainer: step {final.step}, losses {steps['losses']}")
+        want = sorted(["cameras.json", "cfg.json", "gad_cfg.json", "chkpnt1",
+                       f"chkpnt{DP_STEPS}", "decoders.pt", "metrics.jsonl", "point_cloud"])
+        have = sorted(n for n in os.listdir(dp_model) if "tfevents" not in n)
+        if have != want or steps["pid"] == os.getpid():
+            fail(f"data-parallel model dir {have}, wanted {want} written by rank 0")
+        for name in ("blend_forward_aligned", "blend_backward", "sorted_segment_sum",
+                     "dense_segment_sum"):
+            if dev.type == "cuda" and steps["launches"][name] < DP_STEPS:
+                fail(f"{name}: {steps['launches'][name]} launches on rank 0 in {DP_STEPS} steps")
+        # one process: the same two cameras, gradients halved, three Adam steps
+        cfg, ds, state, geom = _train_inputs(root, ply, dev)
+        cache, _ = _bin_cache(geom, ds, cfg, dev)
+        ew, rw = loss_weights(1, cfg)
+        loss1 = _one_process_step(cfg, ds, state, geom,
+                                  ds.epoch_order(np.random.default_rng(rc.seed))[:MULTI_RANKS],
+                                  ew, rw, cache)
+        if not np.isclose(steps["losses"][0], loss1, rtol=2e-5, atol=0):
+            fail(f"DP trainer iteration 1 loss {steps['losses'][0]} vs one process {loss1}")
+        lr = dict(features=cfg.feature_lr, decoder=cfg.decoder_lr, scale_decoder=cfg.decoder_lr)
+        check = _flip_tolerant_params(_checkpoint_params(os.path.join(dp_model, "chkpnt1",
+                                                                      "state.pt")),
+                                      _state_params(state), lr,
+                                      "DP trainer iteration 1 vs one process")
+        steady = np.asarray(steps["step_ms"][2:])
+        report["dp_train"] = dict(
+            steps=DP_STEPS, seconds=run_s, median_ms=float(np.median(steady)),
+            p90_ms=float(np.percentile(steady, 90)), first_ms=steps["step_ms"][0],
+            loss_first=steps["losses"][0], one_process_loss_first=loss1,
+            loss_last=steps["losses"][-1],
+            launches_rank0=steps["launches"], iteration1_vs_one_process=check)
+        print(f"# phase 16 (a) DP trainer, {DP_STEPS} iterations of 2 cameras in {run_s:.1f} s "
+              f"(set-up and spawn included): iteration median {report['dp_train']['median_ms']:.2f}"
+              f" ms, p90 {report['dp_train']['p90_ms']:.2f} ({MULTI_LABEL}; {gpu})", flush=True)
+        del state, geom, cache
+
+        # -- (b)-(d) in one rank group ----------------------------------------
+        results = [r.result for r in launch.spawn(
+            multi_rank, MULTI_RANKS, "gloo", dev.type,
+            args=(root, ply, trained_ply, (N_GAUSSIANS, WIDTH, HEIGHT)), deadline=600)]
+    gsh = results[0]["gshard"]
+    if gsh["overflow"] != [0, 0] or min(gsh["real_rows"]) >= gsh["strip_h"]:
+        fail(f"strip step: overflow {gsh['overflow']}, rows {gsh['real_rows']} of "
+             f"{gsh['strip_h']} a strip (pad rows expected)")
+    cfg, ds, state, geom = _train_inputs(root, ply, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(0).items()}
+    ew, rw = loss_weights(1, cfg)
+    step = make_train_step(ds.width, ds.height, cfg)
+    _, m1 = step(state, geom, batch, ew, rw)
+    grads = {k: v.cpu() for k, v in _named_grads(state, state.features.grad).items()}
+    _, m2 = step(state, geom, batch, ew, rw)
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    if not np.allclose(gsh["losses"], losses, rtol=2e-5, atol=0):
+        fail(f"strip step losses {gsh['losses']} vs one process {losses} (rtol 2e-5)")
+    worst = 0.0
+    for k, want_g in grads.items():
+        got_g = gsh["grads"][k]
+        # per feature channel; per decoder tensor
+        pairs = (zip(got_g[: want_g.shape[0]].T, want_g.T) if k == "features"
+                 else [(got_g, want_g)])
+        for c, (a, b) in enumerate(pairs):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            worst = max(worst, err / max(scale, 1e-30))
+            if err > GSHARD_GRAD_RTOL * scale:
+                fail(f"strip step gradient {k}[{c}]: {err} against its largest {scale} "
+                     f"(limit {GSHARD_GRAD_RTOL} of it)")
+    f2 = _flip_tolerant_params({"features": gsh["features2"][: state.features.shape[0]]},
+                               {"features": state.features.detach()},
+                               {"features": cfg.feature_lr},
+                               "strip step features after 2 steps vs one process", steps=2)
+    coll = gsh["collectives"]
+    report["gshard_train"] = dict(
+        losses=gsh["losses"], one_process_losses=losses, worst_grad_column_rel=worst,
+        features_after_2=f2, strip_h=gsh["strip_h"], real_rows=gsh["real_rows"],
+        median_ms=float(np.median(gsh["step_ms"])), step_ms=gsh["step_ms"], collectives=coll)
+    print(f"# phase 16 (b) strip step, 2 strips of {gsh['strip_h']} rows ({gsh['real_rows']} in "
+          f"the image): loss {gsh['losses'][0]:.6f} vs {losses[0]:.6f}, worst gradient column "
+          f"{worst:.2e} of its largest; median {report['gshard_train']['median_ms']:.2f} ms "
+          f"({MULTI_LABEL}; {gpu})", flush=True)
+    for k, v in coll.items():
+        print(f"# phase 16 (b) {k}: {v['bytes'] / 1e6:.1f} MB in {v['ms']:.2f} ms "
+              f"({MULTI_LABEL}; {gpu})", flush=True)
+    rend = results[0]["gshard_render"]
+    for label, r in rend.items():
+        if r["overflow"] != 0:
+            fail(f"strip render ({label}): overflow {r['overflow']}")
+    if not results[0]["dp_render"]["bit_identical"]:
+        fail("make_dp_render differs from sequential renders")
+    report["gshard_render"] = {k: {kk: v for kk, v in r.items() if kk != "launches"}
+                               for k, r in rend.items()}
+    report["dp_render"] = dict(cameras=results[0]["dp_render"]["cameras"], bit_identical=True)
+    print(f"# phase 16 (c) strip render at 1280x720 / 250k: "
+          f"{ {k: round(r['ms'], 3) for k, r in rend.items()} } ms; (d) make_dp_render of "
+          f"{report['dp_render']['cameras']} cameras bit for bit ({MULTI_LABEL}; {gpu})",
+          flush=True)
+    report["distributed_launches"] = {
+        "dp_train (rank 0)": steps["launches"],
+        "gshard_train (2 steps, both ranks)": _sum_launches(results, "gshard_launches"),
+        "gshard_render K6 (both ranks)": _sum_launches(
+            [r["gshard_render"]["K6"] for r in results], "launches"),
+        "gshard_render K7, cull (both ranks)": _sum_launches(
+            [r["gshard_render"]["K7, cull"] for r in results], "launches"),
+        "dp_render (both ranks)": _sum_launches([r["dp_render"] for r in results], "launches"),
+    }
+    want_launch = {
+        "gshard_train (2 steps, both ranks)": ("blend_forward_aligned", "blend_backward",
+                                               "sorted_segment_sum", "dense_segment_sum",
+                                               "expand_gid"),
+        "gshard_render K6 (both ranks)": ("blend_forward", "expand_gid"),
+        "gshard_render K7, cull (both ranks)": ("blend_forward", "expand_keys"),
+        "dp_render (both ranks)": ("blend_forward", "expand_gid"),
+    }
+    for path, names in want_launch.items():
+        for name in names:  # the CPU (a rehearsal) runs the plain versions
+            if dev.type == "cuda" and report["distributed_launches"][path].get(name, 0) <= 0:
+                fail(f"{name} was not launched in {path}")
+    print(f"# phase 16 launches in the ranks: {report['distributed_launches']}", flush=True)
+    return report
+
+
+# --nccl: the NCCL path, one rank a card, on NCCL_RANKS cards
+
+NCCL_RANKS = 4
+NCCL_ITERS = 10
+NCCL_LABEL = f"{NCCL_RANKS} ranks, one H100 each, over NCCL"
+
+
+def nccl_rank(ctx, root: str, ply: str) -> dict:
+    """One rank of the --nccl check: the 1-D strip step on NCCL_RANKS
+    strips (camera 0; raw gradients after step 1, then timed steps) and
+    the dp 2 x gs 2 step (camera dp)."""
+    import torch.distributed as dist
+
+    from gags_torch.gad.train import loss_weights
+    from gags_torch.parallel import (gshard_state, make_dp_gshard_train_step,
+                                     make_gshard_train_step, make_mesh, make_mesh2d,
+                                     shard_gaussians)
+    from gags_torch.parallel.collectives import all_gather_tensor
+
+    dev, lead = ctx.device, ctx.rank == 0
+    out = dict(device=str(dev), backend=dist.get_backend())
+    cfg, ds, state, geom = _train_inputs(root, ply, dev)
+    ew, rw = loss_weights(1, cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(0).items()}
+    mesh = make_mesh()
+    geom_l, _ = shard_gaussians(geom, state.features, mesh)
+    gs = gshard_state(state, mesh)
+    step = make_gshard_train_step(mesh, ds.width, ds.height, cfg)
+    gs, m = step(gs, geom_l, batch, ew, rw)
+    grads = {k: v.detach().cpu() for k, v in _named_grads(
+        gs, all_gather_tensor(gs.features.grad)).items()}
+    ms = _synced_ms(lambda: step(gs, geom_l, batch, ew, rw), GSHARD_TIMED, dev)
+    if lead:
+        out["gshard"] = dict(loss=float(m["loss"]), overflow=int(m["overflow"]), grads=grads,
+                             median_ms=float(np.median(ms)))
+    del gs, geom_l, state, geom
+    mesh2 = make_mesh2d(2, NCCL_RANKS // 2)
+    cfg, ds, state, geom = _train_inputs(root, ply, dev)
+    geom_l, _ = shard_gaussians(geom, state.features, mesh2, axis="gs")
+    gs = gshard_state(state, mesh2, axis="gs")
+    cam = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(mesh2.coords["dp"]).items()}
+    gs, m = make_dp_gshard_train_step(mesh2, ds.width, ds.height, cfg)(gs, geom_l, cam, ew, rw)
+    feats = all_gather_tensor(gs.features.detach(), mesh2.groups["gs"])
+    if lead:
+        out["dp_gshard"] = dict(loss=float(m["loss"]), overflow=int(m["overflow"]),
+                                features=feats.cpu())
+    return out
+
+
+def nccl_main() -> int:
+    """`python3 chip_smoke.py --nccl`, on a machine with NCCL_RANKS cards:
+    phase 7's training fixture, then (a) cli.train_gad.run with
+    devices=NCCL_RANKS over NCCL (the default on cuda) for NCCL_ITERS
+    iterations, chkpnt1 against one process on card 0 that accumulates
+    the same cameras' gradients and divides them by their count (phase
+    16's tolerances; NCCL sums in its own order); (b) the 1-D strip step
+    on NCCL_RANKS strips against the one-process step (losses rtol 2e-5,
+    each gradient column within GSHARD_GRAD_RTOL of its largest); (c) the
+    dp 2 x gs 2 step against the one-process two-camera step."""
+    from gags_torch import _kernels
+    from gags_torch.cli.train_gad import RunConfig, _bin_cache, run
+    from gags_torch.gad.train import loss_weights, make_train_step
+    from gags_torch.parallel import launch
+    from gags_torch.splat import kernels
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < NCCL_RANKS:
+        fail(f"--nccl needs {NCCL_RANKS} CUDA cards")
+    gpu = gpu_line()
+    print(f"# cards: {torch.cuda.device_count()} x {gpu}; torch {torch.__version__}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.build(list(kernels.SOURCES))
+    dev = torch.device("cuda", 0)
+    report = dict(label=NCCL_LABEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "scene")
+        ply = write_train_fixture(root)
+        # -- (a) train_gad --devices over NCCL -------------------------------
+        model, rec = os.path.join(tmp, "model"), os.path.join(tmp, "steps.json")
+        rc = RunConfig(source_path=root, model_path=model, ply_path=ply, resolution=2,
+                       iterations=NCCL_ITERS, save_iterations=f"1,{NCCL_ITERS}",
+                       test_iterations="", device="cuda", devices=NCCL_RANKS, deadline=600)
+        t0 = time.perf_counter()
+        run(rc, on_step=StepRecorder(rec, NCCL_ITERS, "cuda"))
+        run_s = time.perf_counter() - t0
+        with open(rec) as f:
+            steps = json.load(f)
+        cfg, ds, state, geom = _train_inputs(root, ply, dev)
+        cache, _ = _bin_cache(geom, ds, cfg, dev)
+        ew, rw = loss_weights(1, cfg)
+        cams = ds.epoch_order(np.random.default_rng(rc.seed))[:NCCL_RANKS]
+        loss1 = _one_process_step(cfg, ds, state, geom, cams, ew, rw, cache)
+        if not np.isclose(steps["losses"][0], loss1, rtol=2e-5, atol=0):
+            fail(f"NCCL DP iteration 1 loss {steps['losses'][0]} vs one process {loss1}")
+        lr = dict(features=cfg.feature_lr, decoder=cfg.decoder_lr, scale_decoder=cfg.decoder_lr)
+        check = _flip_tolerant_params(_checkpoint_params(os.path.join(model, "chkpnt1",
+                                                                      "state.pt")),
+                                      _state_params(state), lr,
+                                      "NCCL DP trainer iteration 1 vs one process")
+        steady = np.asarray(steps["step_ms"][2:])
+        report["dp_train"] = dict(iterations=NCCL_ITERS, seconds=run_s,
+                                  median_ms=float(np.median(steady)),
+                                  p90_ms=float(np.percentile(steady, 90)), loss1=steps["losses"][0],
+                                  one_process_loss1=loss1, launches_rank0=steps["launches"],
+                                  iteration1_vs_one_process=check)
+        print(f"# (a) DP trainer, {NCCL_ITERS} iterations of {NCCL_RANKS} cameras in {run_s:.1f} s "
+              f"(set-up and spawn included): iteration median "
+              f"{report['dp_train']['median_ms']:.2f} ms ({NCCL_LABEL}; {gpu})", flush=True)
+        del state, geom, cache
+        # -- (b), (c) the strip steps over NCCL --------------------------------
+        res = [r.result for r in launch.spawn(nccl_rank, NCCL_RANKS, "nccl", "cuda",
+                                              args=(root, ply), deadline=600)]
+        if any(r["backend"] != "nccl" for r in res) or len({r["device"] for r in res}) != NCCL_RANKS:
+            fail(f"ranks: {[(r['device'], r['backend']) for r in res]}")
+        g = res[0]["gshard"]
+        cfg, ds, state, geom = _train_inputs(root, ply, dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in ds.batch(0).items()}
+        _, m = make_train_step(ds.width, ds.height, cfg)(state, geom, batch, ew, rw)
+        worst = 0.0
+        for k, want in _named_grads(state, state.features.grad).items():
+            want, got = want.cpu(), g["grads"][k]
+            pairs = zip(got[: want.shape[0]].T, want.T) if k == "features" else [(got, want)]
+            for a, b in pairs:
+                worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+        if (g["overflow"] or worst > GSHARD_GRAD_RTOL
+                or not np.isclose(g["loss"], float(m["loss"]), rtol=2e-5, atol=0)):
+            fail(f"NCCL strip step: loss {g['loss']} vs {float(m['loss'])}, overflow "
+                 f"{g['overflow']}, worst gradient column {worst}")
+        report["gshard_train"] = dict(loss=g["loss"], one_process_loss=float(m["loss"]),
+                                      worst_grad_column_rel=worst, median_ms=g["median_ms"])
+        print(f"# (b) strip step, {NCCL_RANKS} strips: worst gradient column {worst:.2e} of its "
+              f"largest; median {g['median_ms']:.2f} ms ({NCCL_LABEL}; {gpu})", flush=True)
+        del state, geom
+        cfg, ds, state, geom = _train_inputs(root, ply, dev)
+        _one_process_step(cfg, ds, state, geom, (0, 1), ew, rw)
+        d = res[0]["dp_gshard"]
+        if d["overflow"]:
+            fail(f"NCCL dp x gs step: overflow {d['overflow']}")
+        report["dp_gshard"] = dict(loss=d["loss"], features_after_1=_flip_tolerant_params(
+            {"features": d["features"][: state.features.shape[0]]},
+            {"features": state.features.detach()}, {"features": cfg.feature_lr},
+            "NCCL dp 2 x gs 2 features vs one process"))
+    print(f"# nccl report: {json.dumps(report)}")
+    print(f"gpu: {gpu}")
+    return 0
+
+
 def encode_png_paeth(a: np.ndarray) -> bytes:
     """(H, W, 3) uint8 → an RGB PNG whose every row has filter 4 (Paeth),
     the filter that libpng and PIL choose for most rows of a photograph."""
@@ -2931,10 +3529,11 @@ def main() -> int:
     serve_k5 = dict(chunk=cfg.chunk, args=(
         geom_p, cols_f.contiguous(), binned.inst_gid, binned.tile_starts, binned.tile_counts,
         torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w))
-    train_kernels, (options, query, warm) = train_phase(
+    train_kernels, (options, query, warm, multi) = train_phase(
         dev, gpu, lambda root, model: (options_phase(root, model, dev, gpu, serve_k5),
                                        query_phase(root, model, dev, gpu),
-                                       warm_phase(root, model, dev, gpu)))
+                                       warm_phase(root, model, dev, gpu),
+                                       multi_phase(root, model, dev, gpu)))
     del serve_k5, cols_f
     ws, surf_gad = warm["warm_start"], warm["surface"]["gad"]["launches"]
     for r in train_kernels:  # phase 9d's paths: warm start (tuner apart), surface scene
@@ -2956,7 +3555,7 @@ def main() -> int:
     # -- 15. the probes' kernels P1 and P2 -------------------------------------------
     probe_kernels = probes_phase(dev, gpu)
 
-    # -- 16. report --------------------------------------------------------------
+    # -- 17. report --------------------------------------------------------------
     f16 = k5["features"]
     keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3028,7 +3627,12 @@ def main() -> int:
                        for k, r in render_runs.items()},
     })
     kernels_line["kernels"].extend(probe_kernels)
+    for r in kernels_line["kernels"]:  # phase 16: launches inside the ranks, by path
+        r["distributed_launches"] = {path: counts.get(r["name"], 0)
+                                     for path, counts in multi["distributed_launches"].items()}
     print(f"# GAS report: {json.dumps(gas_report)}")
+    print(f"# multi-rank report ({MULTI_LABEL}): "
+          f"{json.dumps({k: v for k, v in multi.items() if k != 'distributed_launches'})}")
     print(f"# query report: {json.dumps(query)}")
     print(f"# warm-start report: {json.dumps(warm)}")
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
@@ -3040,4 +3644,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(nccl_main() if sys.argv[1:] == ["--nccl"] else main())

@@ -4,7 +4,7 @@ Usage:
   python -m gags_torch.cli.train_gad -s <scene_dir> -m <model_dir> \\
       (--ply <pretrained point_cloud.ply> | --start_checkpoint <chkpnt<N>.pth>) \\
       [-r 2] [--iterations 30000] [--resume] [--autotune_train] [--profile] \\
-      [--viewer_port 6009] [--device cpu]
+      [--viewer_port 6009] [--device cpu] [--devices N [--dist_backend gloo]]
 
 The scene dir holds a COLMAP (or Blender) reconstruction plus
 `language_features/<img>_{f,s}.npy` from the GAS stage; the frozen
@@ -24,8 +24,17 @@ under `<model>/profile/`; `--viewer_port` serves RGB frames of the frozen
 geometry to a SIBR remote viewer (0 or less: off). At each save
 iteration it writes `chkpnt<N>/`, `point_cloud/iteration_N/
 point_cloud.ply` with the trained features and `decoders.pt`, which
-`gags_torch.cli.serve` serves. Single device only: multi-device training
-(`--devices`) is not ported yet.
+`gags_torch.cli.serve` serves.
+
+`--devices N` trains camera-data-parallel on N ranks, one process each
+(gags_torch.parallel): every iteration takes N cameras, one a rank, and
+applies the mean of their gradients on every rank. The backend is gloo
+with `--device cpu` and NCCL with one rank per card on `cuda`; ranks that
+share a card need `--dist_backend gloo`, which is said at start-up. Rank
+0 alone writes the model dir (checkpoints, PLY, decoders, metrics,
+held-out reports, the NaN dump, the viewer, the profile) while the others
+wait at a barrier; `--resume` and `--start_checkpoint` load on every
+rank. `--devices` takes precedence over `--autotune_train`.
 """
 
 from __future__ import annotations
@@ -95,6 +104,11 @@ class RunConfig:
     viewer_port: int = -1
     autotune_train: bool = False  # time equivalent step variants at startup
     device: str = "cuda"
+    # camera-data-parallel ranks (parallel/sharding.make_dp_train_step on
+    # the binned path): each iteration takes `devices` cameras
+    devices: int = 1
+    dist_backend: str = ""       # "": gloo on the CPU, nccl on cuda
+    deadline: float = 0.0        # seconds the ranks may run (0: no limit)
 
 
 def _bin_cache(geom, dataset: GadDataset, gad_cfg: GadConfig, device):
@@ -211,16 +225,45 @@ def run(rc: RunConfig, gad_cfg: Optional[GadConfig] = None,
     """Train; returns the final state. `on_step(it, state, metrics)`, if
     given, observes the loop (timing, probes): it is called once with the
     first iteration's number minus one and metrics None just before the
-    first step, then after every step with that step's metrics."""
-    dev = resolve_device(rc.device)
+    first step, then after every step with that step's metrics. With
+    `rc.devices` > 1 the ranks train in processes of their own: on_step
+    (pickled, so a module-level function or object) runs on rank 0, and
+    rank 0's final state comes back on the CPU."""
     gad_cfg = gad_cfg or GadConfig()
-    os.makedirs(rc.model_path, exist_ok=True)
-    save_config(rc, rc.model_path)
-    gad_cfg.save(rc.model_path)
+    if rc.devices <= 1:
+        return _train(None, rc, gad_cfg, on_step)
+    from gags_torch.parallel import launch
+
+    backend = rc.dist_backend or ("gloo" if torch.device(rc.device).type == "cpu" else "nccl")
+    launch.check_backend(rc.devices, backend, rc.device)
+    print(f"train_gad: {rc.devices} ranks over {backend} on {rc.device}")
+    ranks = launch.spawn(_train, rc.devices, backend, rc.device, args=(rc, gad_cfg, on_step),
+                         deadline=rc.deadline or None)
+    return ranks[0].result
+
+
+def _train(ctx, rc: RunConfig, gad_cfg: GadConfig, on_step):
+    """One process's run: the whole of it on one device (`ctx` None), or
+    one rank of a --devices run (`ctx` a launch.RankContext, which spawn
+    passes first; the process group is up)."""
+    dev = resolve_device(rc.device) if ctx is None else ctx.device
+    lead = ctx is None or ctx.rank == 0  # the one writer of the model dir
+
+    def barrier():
+        if ctx is not None:
+            torch.distributed.barrier()
+
+    if lead:
+        os.makedirs(rc.model_path, exist_ok=True)
+        save_config(rc, rc.model_path)
+        gad_cfg.save(rc.model_path)
 
     scene_info = detect_and_load(rc.source_path, eval_split=rc.eval_split)
-    with open(os.path.join(rc.model_path, "cameras.json"), "w") as f:
-        json.dump([camera_to_json(i, ci) for i, ci in enumerate(scene_info.train_cameras)], f)
+    if lead:
+        with open(os.path.join(rc.model_path, "cameras.json"), "w") as f:
+            json.dump([camera_to_json(i, ci) for i, ci in enumerate(scene_info.train_cameras)],
+                      f)
+    barrier()
     if not rc.start_checkpoint and not rc.ply_path:
         raise SystemExit("one of --ply / --start_checkpoint is required")
     warm_iter = 0
@@ -258,7 +301,15 @@ def run(rc: RunConfig, gad_cfg: Optional[GadConfig] = None,
 
     geom = frozen_geometry(geometry)
     bin_cache, _ = _bin_cache(geom, dataset, gad_cfg, dev)
-    if rc.autotune_train:
+    if ctx is not None:  # takes precedence over --autotune_train
+        from gags_torch.parallel import make_dp_train_step, make_mesh
+
+        dp_step = make_dp_train_step(make_mesh(), dataset.width, dataset.height, gad_cfg,
+                                     binned=True)
+
+        def step_fn(state, geom, batch, ew, rw):  # this rank's one camera
+            return dp_step(state, geom, {k: v[None] for k, v in batch.items()}, ew, rw)
+    elif rc.autotune_train:
         # time the equivalent step variants on this device; the winner
         # runs the loop and the model dir carries it
         b0 = {k: torch.as_tensor(v, device=dev) for k, v in dataset.batch(0).items()}
@@ -278,7 +329,7 @@ def run(rc: RunConfig, gad_cfg: Optional[GadConfig] = None,
     save_at.add(rc.iterations)
     test_at = {int(s) for s in rc.test_iterations.split(",") if s}
 
-    metrics_w = MetricsWriter(rc.model_path)
+    metrics_w = MetricsWriter(rc.model_path) if lead else None
     progress = EmaProgress(rc.iterations)
 
     eval_fn = test_ds = None
@@ -311,64 +362,83 @@ def run(rc: RunConfig, gad_cfg: Optional[GadConfig] = None,
 
     def batch_stream():
         while True:
-            for i in dataset.epoch_order(rng):
-                b = dataset.batch(int(i))
-                b.update(bin_cache[int(i)])
+            order = [int(i) for i in dataset.epoch_order(rng)]
+            if ctx is not None:
+                # every rank draws the same order and takes every
+                # world_size-th camera; the epoch's tail wraps, so each
+                # iteration takes exactly world_size cameras
+                while len(order) % ctx.world_size:
+                    order.append(order[len(order) % len(dataset)])
+                order = order[ctx.rank::ctx.world_size]
+            for i in order:
+                b = dataset.batch(i)
+                b.update(bin_cache[i])
                 yield b
 
-    viewer = _make_viewer(geometry, rc, dev)
+    viewer = _make_viewer(geometry, rc, dev) if lead else None
     prof = None
     stream = prefetch_to_device(batch_stream(), dev)
     t_iter = time.time()
-    if on_step is not None:
+    if lead and on_step is not None:
         on_step(first_iter, state, None)
     try:
         for it in range(first_iter + 1, rc.iterations + 1):
             if viewer is not None:
                 viewer.poll(it, rc.iterations)
-            if rc.profile and it == 50:
+            if lead and rc.profile and it == 50:
                 prof = _start_profile(dev)
             if prof is not None and it == 60:
                 _stop_profile(prof, rc.model_path)
                 prof = None
             ew, rw = loss_weights(it, gad_cfg)
             state, m = step_fn(state, geom, next(stream), ew, rw)
-            if on_step is not None:
+            if lead and on_step is not None:
                 on_step(it, state, m)
             if it % 10 == 0:
                 loss = float(m["loss"])  # a host sync every 10 iterations only
-                if not np.isfinite(loss):
+                if not np.isfinite(loss):  # the same loss on every rank
                     # keep the poisoned state for inspection OUTSIDE the
                     # chkpnt* namespace, so --resume finds the last good one
-                    save_checkpoint(os.path.join(rc.model_path, "nan_dump"), state, it)
+                    if lead:
+                        save_checkpoint(os.path.join(rc.model_path, "nan_dump"), state, it)
+                    barrier()
                     raise FloatingPointError(
                         f"non-finite loss at iteration {it}: state saved to "
                         f"nan_dump/chkpnt{it}; check learning rates and supervision")
-                progress.update(it, loss)
-            if it % 500 == 0:
+                if lead:
+                    progress.update(it, loss)
+            if lead and it % 500 == 0:
                 dt = time.time() - t_iter
                 t_iter = time.time()
-                row = {k: float(m[k]) for k in ("loss", "l1_feature", "entropy", "region_var")}
-                row.update(scale_s=float(m["scale_mean_s"]), scale_m=float(m["scale_mean_m"]),
-                           scale_l=float(m["scale_mean_l"]), overflow=float(m["overflow"]),
-                           sec_per_500=dt)
+                # the data-parallel step reports loss and overflow only
+                row = {k: float(m[k]) for k in ("loss", "l1_feature", "entropy", "region_var")
+                       if k in m}
+                if "scale_mean_s" in m:
+                    row.update(scale_s=float(m["scale_mean_s"]), scale_m=float(m["scale_mean_m"]),
+                               scale_l=float(m["scale_mean_l"]))
+                row.update(overflow=float(m["overflow"]), sec_per_500=dt)
                 metrics_w.write(it, row)
             if it in test_at and eval_fn is not None:
-                test_report(it)
+                if lead:
+                    test_report(it)
+                barrier()
             if it in save_at:
-                print(f"\n[iter {it}] saving checkpoint + PLY + decoders")
-                save_checkpoint(rc.model_path, state, it)
-                export_ply(rc.model_path, geometry, state, it)
-                save_decoders(os.path.join(rc.model_path, "decoders.pt"),
-                              state.decoder, state.scale_decoder)
+                if lead:
+                    print(f"\n[iter {it}] saving checkpoint + PLY + decoders")
+                    save_checkpoint(rc.model_path, state, it)
+                    export_ply(rc.model_path, geometry, state, it)
+                    save_decoders(os.path.join(rc.model_path, "decoders.pt"),
+                                  state.decoder, state.scale_decoder)
+                barrier()
     finally:
         if prof is not None:
             _stop_profile(prof, rc.model_path)
         if viewer is not None:
             viewer.close()
         stream.close()
-        metrics_w.close()
-    return state
+        if metrics_w is not None:
+            metrics_w.close()
+    return state if lead else None
 
 
 def main(argv=None):
@@ -393,6 +463,12 @@ def main(argv=None):
                    help="time the equivalent train-step variants on the device at "
                         "startup; train with the faster")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--devices", type=int, default=1,
+                   help="camera-data-parallel ranks, one process each (each iteration "
+                        "takes N cameras)")
+    p.add_argument("--dist_backend", default="", choices=("", "gloo", "nccl"),
+                   help="default: gloo with --device cpu, nccl (one rank per card) on cuda; "
+                        "gloo on cuda lets ranks share a card")
     p.add_argument("--no_fused_supervision", action="store_true",
                    help="use the generic supervision composition (same math)")
     p.add_argument("--decoder_bf16", action="store_true",

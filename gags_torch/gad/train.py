@@ -221,22 +221,44 @@ def _apply(state: TrainState, total: torch.Tensor) -> None:
     state.step += 1
 
 
+def camera_loss(state: TrainState, geom, batch, entropy_w: float, regionvar_w: float,
+                width: int, height: int, cfg: GadConfig, binned: bool = False):
+    """One camera's GAD loss, differentiable in the features and both
+    decoders: (total, metrics). With `binned` the batch carries the
+    camera's cached binning (`make_train_step_binned`)."""
+    dev = state.device
+    bg = torch.zeros((cfg.feature_dim,), dtype=torch.float32, device=dev)
+    if binned:
+        feat_map, _alpha = rasterize_binned(
+            geom["means"], geom["quats"], geom["scales"], geom["opacities"],
+            state.features, batch["viewmat"], batch["K"],
+            batch["inst_gid"], batch["tile_starts"], batch["tile_counts"],
+            width, height, background=bg, config=cfg.raster,
+            order=batch["order"], red_slot=batch["red_slot"],
+            red_rank=batch["red_rank"], red_block=batch["red_block"],
+        )
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)  # checked at cache build
+    else:
+        res = rasterize(geom["means"], geom["quats"], geom["scales"], geom["opacities"],
+                        state.features, batch["viewmat"], batch["K"], width, height,
+                        background=bg, config=cfg.raster, device=dev)
+        feat_map, overflow = res.image, res.overflow
+    l1_feature, ent, regvar, scale_px = _supervision_losses(
+        cfg, state.decoder, state.scale_decoder, feat_map, batch)
+    total = l1_feature + entropy_w * ent + regionvar_w * regvar
+    return total, _metrics(total, l1_feature, ent, regvar, scale_px, overflow)
+
+
 def make_train_step(width: int, height: int, cfg: GadConfig):
     """step(state, geom, batch, entropy_w, regionvar_w) → (state, metrics),
     binning the camera inside the step. `geom`: `frozen_geometry` tensors;
     `batch`: viewmat (4, 4), K (3, 3), img_embed (M, clip_dim), seg_map
     (H, W, 4) int32, all on the state's device. Updates `state` in place."""
     def step(state: TrainState, geom, batch, entropy_w: float, regionvar_w: float):
-        dev = state.device
-        bg = torch.zeros((cfg.feature_dim,), dtype=torch.float32, device=dev)
-        res = rasterize(geom["means"], geom["quats"], geom["scales"], geom["opacities"],
-                        state.features, batch["viewmat"], batch["K"], width, height,
-                        background=bg, config=cfg.raster, device=dev)
-        l1_feature, ent, regvar, scale_px = _supervision_losses(
-            cfg, state.decoder, state.scale_decoder, res.image, batch)
-        total = l1_feature + entropy_w * ent + regionvar_w * regvar
+        total, metrics = camera_loss(state, geom, batch, entropy_w, regionvar_w,
+                                     width, height, cfg)
         _apply(state, total)
-        return state, _metrics(total, l1_feature, ent, regvar, scale_px, res.overflow)
+        return state, metrics
 
     return step
 
@@ -247,22 +269,10 @@ def make_train_step_binned(width: int, height: int, cfg: GadConfig):
     and red_block from `rasterizer.prepare_binning` (frozen geometry: a
     camera's binning never changes). Updates `state` in place."""
     def step(state: TrainState, geom, batch, entropy_w: float, regionvar_w: float):
-        dev = state.device
-        bg = torch.zeros((cfg.feature_dim,), dtype=torch.float32, device=dev)
-        feat_map, _alpha = rasterize_binned(
-            geom["means"], geom["quats"], geom["scales"], geom["opacities"],
-            state.features, batch["viewmat"], batch["K"],
-            batch["inst_gid"], batch["tile_starts"], batch["tile_counts"],
-            width, height, background=bg, config=cfg.raster,
-            order=batch["order"], red_slot=batch["red_slot"],
-            red_rank=batch["red_rank"], red_block=batch["red_block"],
-        )
-        l1_feature, ent, regvar, scale_px = _supervision_losses(
-            cfg, state.decoder, state.scale_decoder, feat_map, batch)
-        total = l1_feature + entropy_w * ent + regionvar_w * regvar
+        total, metrics = camera_loss(state, geom, batch, entropy_w, regionvar_w,
+                                     width, height, cfg, binned=True)
         _apply(state, total)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)  # checked at cache build
-        return state, _metrics(total, l1_feature, ent, regvar, scale_px, zero)
+        return state, metrics
 
     return step
 

@@ -213,3 +213,82 @@ def test_fused_supervision_saves_only_its_inputs():
     assert len(saved) == 4
     assert {t.data_ptr() for t in saved} == {dec.data_ptr(), emb_t.data_ptr(),
                                              seg_t.data_ptr(), sc.data_ptr()}
+
+
+# --- the group branches: row strips of one image over two gloo ranks -------
+
+GH, GW, GC, GS = 16, 12, 5, 16  # image, channels, segment capacity
+
+
+def _group_inputs():
+    rng = np.random.default_rng(21)
+    lmap = rng.uniform(size=(GH, GW)).astype(np.float32)
+    feat = rng.normal(size=(GH, GW, GC)).astype(np.float32)
+    seg = _rand_seg(GH, GW, 9, seed=22)
+    return lmap, feat, seg
+
+
+def region_group_ranks(ctx):
+    """This rank's row strip through both region losses with `group`: the
+    values and the gradients of the strip's inputs."""
+    import torch.distributed as dist
+
+    lmap, feat, seg = _group_inputs()
+    rows = slice(ctx.rank * GH // ctx.world_size, (ctx.rank + 1) * GH // ctx.world_size)
+    lt = torch.as_tensor(lmap[rows]).requires_grad_(True)
+    ft = torch.as_tensor(feat[rows]).requires_grad_(True)
+    st = torch.as_tensor(seg[rows])
+    l1 = tl.region_balanced_l1(lt, st, GS, group=dist.group.WORLD)
+    rv = tl.region_variance_loss(ft, st, GS, group=dist.group.WORLD, num_pixels=GH * GW)
+    (l1 + rv).backward()
+    return dict(l1=l1.detach(), rv=rv.detach(), g_l=lt.grad, g_f=ft.grad)
+
+
+@pytest.fixture(scope="module")
+def region_group():
+    from gags_torch.parallel.launch import spawn
+
+    return [r.result for r in spawn(region_group_ranks, 2, "gloo", "cpu", deadline=120)]
+
+
+def test_region_losses_group_equal_full_image(region_group):
+    """Both region losses over 2 row strips (moments summed by the
+    differentiable all_reduce) equal the full-image values on every rank
+    (rtol 1e-6) and their strips' gradients equal the full image's (the
+    all_reduce's backward is the identity: no rank-count factor)."""
+    lmap, feat, seg = _group_inputs()
+    lt = torch.as_tensor(lmap).requires_grad_(True)
+    ft = torch.as_tensor(feat).requires_grad_(True)
+    l1 = tl.region_balanced_l1(lt, torch.as_tensor(seg), GS)
+    rv = tl.region_variance_loss(ft, torch.as_tensor(seg), GS)
+    (l1 + rv).backward()
+    for r in region_group:
+        np.testing.assert_allclose(float(r["l1"]), float(l1.detach()), rtol=1e-6)
+        np.testing.assert_allclose(float(r["rv"]), float(rv.detach()), rtol=1e-6)
+    g_l = torch.cat([r["g_l"] for r in region_group])
+    g_f = torch.cat([r["g_f"] for r in region_group])
+    torch.testing.assert_close(g_l, lt.grad, rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(g_f, ft.grad, rtol=1e-6, atol=1e-9)
+    with pytest.raises(ValueError, match="num_pixels"):
+        tl.region_variance_loss(ft, torch.as_tensor(seg), GS, group=object())
+
+
+def test_region_losses_group_equal_jax_axis_name(region_group):
+    """Without pad rows the group values equal JAX's axis_name branch
+    inside shard_map over make_mesh(2) (rtol 1e-5, as the one-device
+    comparisons above)."""
+    from jax.sharding import PartitionSpec as P
+
+    from gags_tpu.parallel import make_mesh
+
+    lmap, feat, seg = _group_inputs()
+
+    def per_device(lm, ft, sg):
+        return (jl.region_balanced_l1(lm, sg, GS, axis_name="dp"),
+                jl.region_variance_loss(ft, sg, GS, axis_name="dp"))
+
+    fn = jax.jit(jax.shard_map(per_device, mesh=make_mesh(2), in_specs=(P("dp"),) * 3,
+                               out_specs=(P(), P()), check_vma=False))
+    want_l1, want_rv = fn(jnp.asarray(lmap), jnp.asarray(feat), jnp.asarray(seg))
+    np.testing.assert_allclose(float(region_group[0]["l1"]), float(want_l1), rtol=1e-5)
+    np.testing.assert_allclose(float(region_group[0]["rv"]), float(want_rv), rtol=1e-5)

@@ -7,8 +7,8 @@ NCCL check of `nccl_main`: gags_torch.parallel with one rank a card)
 
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
-  2. build every kernel from gags_torch/splat/csrc and gags_torch/probes/csrc
-     (one nvcc per source, all at once);
+  2. build every kernel from gags_torch/splat/csrc, gags_torch/probes/csrc
+     and gags_torch/utils/csrc (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
      torch.searchsorted (the library yardstick), as device time per call
@@ -178,6 +178,23 @@ Phases, each of which fails the run:
      CPU tensors (rtol 1e-6, atol 1e-6, rtol 1e-6; LPIPS at least 1e-3,
      and a control with TF32 convolutions that must miss), seconds per
      image;
+ 18. JPEG scenes (run after 14, before 15, in the RGB phase's temporary
+     directory): (a) every JPEG fixture of tests/data/torch_jpeg through
+     J1 jpeg_decode (host C++ entropy decoding, then the dequant + IDCT and
+     upsampling + colour kernels) equal to PIL's stored pixels and to the
+     plain decode, bit-identical on a second launch; (b) phase 10's eight
+     1280x720 ground truths written as JPEG by encode_jpeg (Pillow's save
+     defaults), each decoded on the card equal to the CPU's plain decode
+     (per frame: parse, host entropy and H2D ms; J1's device time, bound
+     and plain time on the card), then gags_torch.cli.train_rgb.run on
+     that scene at -r 1 (SH 3, 400k slots) for JPEG_STEPS steps with the
+     launch counts set to 0 just before and read just after: J1 once an
+     image, K1, K6 and K8 every step, the loss finite and falling; (c)
+     the images at -r 2 through load_rgb's BICUBIC on the card equal to
+     the CPU's; (d) gags_torch.cli.gas.run on two of the JPEG cameras with
+     phase 14's random checkpoints and lowered thresholds: every camera
+     written; (e) convert's LANCZOS pyramid of the eight JPEGs on the card
+     byte for byte the CPU's;
  15. the probes' kernels P1 vpu_chain and P2 slab_chain (the TPU probes
      scripts/vpu_probe.py and scripts/slab_probe.py): their entry points
      (vpu_probe.main, slab_probe.main) with the launch counts set to 0
@@ -212,7 +229,8 @@ Phases, each of which fails the run:
  17. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
-     stage-A launches; every kernel with its phase-16 launches) and P1-P2,
+     stage-A launches; every kernel with its phase-16 launches), P1-P2
+     and J1 (its launches in phase 18's training, GAS and convert runs),
      the query and multi-rank reports, then the card's name and power
      limit, then the final {"ok": true, ...}.
 """
@@ -2555,8 +2573,8 @@ def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
         # -- 11. time the step at SH degree 3 ----------------------------------
         info = detect_and_load(root, foundation_model="none")
         cams = [camera_from_info(ci, 1).to(dev) for ci in info.train_cameras]
-        imgs = [torch.as_tensor(load_rgb(ci.image_path, c.width, c.height), device=dev)
-                .to(torch.float32) / 255.0 for ci, c in zip(info.train_cameras, cams)]
+        imgs = [load_rgb(ci.image_path, c.width, c.height, dev).to(torch.float32) / 255.0
+                for ci, c in zip(info.train_cameras, cams)]
         w, h = cams[0].width, cams[0].height
         step = make_rgb_step(cfg, w, h, spatial_scale=info.radius)
         batches = [dict(viewmat=c.viewmat, K=c.K, image=im) for c, im in zip(cams, imgs)]
@@ -2869,10 +2887,8 @@ def metrics_phase(root: str, model: str, it: int, names, gpu: str) -> dict:
     t0 = time.perf_counter()
     with torch.no_grad():
         for n in names:
-            r = torch.as_tensor(read_rgb(os.path.join(method, "renders", n + ".png")).astype(
-                np.float32) / 255.0)
-            g = torch.as_tensor(read_rgb(os.path.join(method, "gt", n + ".png")).astype(
-                np.float32) / 255.0)
+            r = read_rgb(os.path.join(method, "renders", n + ".png"), "cpu").to(torch.float32) / 255.0
+            g = read_rgb(os.path.join(method, "gt", n + ".png"), "cpu").to(torch.float32) / 255.0
             want = {"PSNR": float(psnr(r, g)), "SSIM": float(ssim(r, g)),
                     "LPIPS": float(cpu_lpips(r, g))}
             for k, (rtol, atol) in METRIC_TOL.items():
@@ -2888,10 +2904,10 @@ def metrics_phase(root: str, model: str, it: int, names, gpu: str) -> dict:
     tf32_err = lpips_tf32_control(vgg, lin, method, names[0], cpu_lpips)
     # where an image's time goes: the host's two PNG decodes, then LPIPS on the card
     t0 = time.perf_counter()
-    pair = [read_rgb(os.path.join(method, sub, names[0] + ".png")) for sub in ("renders", "gt")]
+    pair = [read_rgb(os.path.join(method, sub, names[0] + ".png"), "cpu") for sub in ("renders", "gt")]
     decode_ms = (time.perf_counter() - t0) * 1e3
     card_lpips = lpips_from_checkpoints(vgg, lin, device="cuda")
-    ra, ga = (torch.as_tensor(x.astype(np.float32) / 255.0, device="cuda") for x in pair)
+    ra, ga = (x.to("cuda", torch.float32) / 255.0 for x in pair)
     with torch.no_grad():
         lpips_ms = cuda_ms(lambda: card_lpips(ra, ga), 3)
     r = dict(views=len(names), seconds=secs, seconds_per_image=secs / len(names),
@@ -2916,8 +2932,8 @@ def lpips_tf32_control(vgg: str, lin: str, method: str, name: str, cpu_lpips) ->
     from gags_torch.utils import lpips as lpips_mod
     from gags_torch.utils.image import read_rgb
 
-    a, b = (torch.as_tensor(read_rgb(os.path.join(method, sub, name + ".png")).astype(
-        np.float32) / 255.0) for sub in ("renders", "gt"))
+    a, b = (read_rgb(os.path.join(method, sub, name + ".png"), "cpu").to(torch.float32) / 255.0
+            for sub in ("renders", "gt"))
     with torch.no_grad():
         want = float(cpu_lpips(a, b))
         model = lpips_mod.lpips_from_checkpoints(vgg, lin, device="cuda")
@@ -3042,7 +3058,7 @@ def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
             fail(f"language features of {n}: f {f.shape} {f.dtype}, s {s.shape} max {s.max()}")
 
     # stage times on one image, beside the card's name and power limit
-    image = gas.load_image_1080p(info.train_cameras[0].image_path)
+    image = gas.load_image_1080p(info.train_cameras[0].image_path, dev)
     sam, _ = load_sam_checkpoint(sam_path, SAMConfig.vit_h(), device=dev)
     size = SAMConfig.vit_h().image_size
     pre_ms = cuda_ms(lambda: preprocess_sam_image(image, size, dev), 3, warmup=1)
@@ -3096,7 +3112,7 @@ def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     from gags_torch.cli.gas import round_weights_bf16
 
     round_weights_bf16(sam)
-    x4 = torch.cat([preprocess_sam_image(gas.load_image_1080p(ci.image_path), size, dev)[0]
+    x4 = torch.cat([preprocess_sam_image(gas.load_image_1080p(ci.image_path, dev), size, dev)[0]
                     for ci in info.train_cameras[:4]])
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -3217,6 +3233,253 @@ def gas_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
     print(f"# encode_text → /relevancy on the GAD model: status {status}, relevancy_max "
           f"{payload['relevancy_max']:.4f}, {payload['selected_px']} px selected", flush=True)
     return report
+
+
+# phase 18 (after 14, in the RGB phase's temporary directory): the RGB
+# scene's ground truths as JPEG files, read on the card through J1
+JPEG_STEPS = 50
+JPEG_GAS_CAMERAS = 2
+JPEG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                         "torch_jpeg")
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _jpeg_scene(src: str, dst: str, names, encode) -> None:
+    """A copy of the COLMAP scene at `src` holding only the images `names`
+    (stems), each written as <stem>.jpg by `encode(stem)`, with its depth
+    samples where `src` has them."""
+    import shutil
+
+    from gags_torch.scene import colmap as cm
+
+    os.makedirs(os.path.join(dst, "sparse", "0"))
+    os.makedirs(os.path.join(dst, "images"))
+    for f in ("cameras.bin", "points3D.ply"):
+        shutil.copy(os.path.join(src, "sparse", "0", f), os.path.join(dst, "sparse", "0", f))
+    imgs = {}
+    for k, im in cm.read_images_binary(os.path.join(src, "sparse", "0", "images.bin")).items():
+        stem = os.path.splitext(im.name)[0]
+        if stem in names:
+            imgs[k] = im._replace(name=stem + ".jpg")
+            with open(os.path.join(dst, "images", stem + ".jpg"), "wb") as f:
+                f.write(encode(stem))
+            sample = os.path.join(src, "depths_sample", stem + "_depth_sample.npy")
+            if os.path.exists(sample):
+                os.makedirs(os.path.join(dst, "depths_sample"), exist_ok=True)
+                shutil.copy(sample, os.path.join(dst, "depths_sample"))
+    cm.write_images_binary(os.path.join(dst, "sparse", "0", "images.bin"), imgs)
+
+
+def jpeg_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
+    """Phase 18: (a) every committed JPEG fixture through J1 against PIL's
+    stored pixels and the plain decode, bit-identical on a second launch;
+    (b) the RGB scene's eight 1280x720 ground truths as JPEG (encode_jpeg),
+    decoded on the card against the CPU's plain decode (host entropy, copy
+    and kernel times), the first of them also at h1v2 and h4v1 sampling,
+    then cli.train_rgb.run on that scene at -r 1 for
+    JPEG_STEPS steps with the launch counts set to 0 just before and read
+    just after (J1 once an image; K1, K6, K8 every step; the loss finite
+    and falling); (c) the images at -r 2 through load_rgb's BICUBIC on the
+    card against the CPU's; (d) cli.gas.run on JPEG_GAS_CAMERAS of the JPEG
+    cameras with phase 14's random checkpoints and lowered thresholds,
+    every camera written; (e) convert's LANCZOS pyramid of the JPEGs on the
+    card, byte for byte the CPU's. Returns J1's kernels-line entry."""
+    import shutil
+
+    from gags_torch.cli import convert, gas
+    from gags_torch.cli.train_rgb import RunConfig, run
+    from gags_torch.gas.generator import GeneratorConfig
+    from gags_torch.rgb.train import RgbConfig
+    from gags_torch.scene.dataset import camera_from_info, detect_and_load
+    from gags_torch.splat import kernels
+    from gags_torch.utils import jpeg
+    from gags_torch.utils.image import load_rgb, read_png, read_rgb, resize_uint8
+
+    t_phase = time.perf_counter()
+    tmp = os.path.dirname(root)
+    # -- (a) the fixtures -----------------------------------------------------
+    with np.load(os.path.join(JPEG_DATA, "pixels.npz")) as d:
+        stored = {k: d[k] for k in d.files}
+    fixtures = sorted(f for f in os.listdir(JPEG_DATA) if f.endswith(".jpg"))
+    fx = []
+    for n in fixtures:
+        p = os.path.join(JPEG_DATA, n)
+        jf = jpeg.parse_jpeg(_read_bytes(p), n)
+        fx.append((torch.from_numpy(jpeg.entropy_decode_host(jf)).to(dev), jf.layout()))
+        got, again = read_rgb(p, dev), read_rgb(p, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"J1 jpeg_decode: two launches differ on {n}")
+        if not np.array_equal(got.cpu().numpy(), stored[n]):
+            fail(f"J1 jpeg_decode: {n} differs from PIL's stored pixels")
+        if not torch.equal(got.cpu(), read_rgb(p, "cpu")):
+            fail(f"J1 jpeg_decode: {n} differs from the plain decode")
+    fixture_ms = device_ms(lambda: [jpeg.jpeg_pixels(c, lay) for c, lay in fx]) / len(fx)
+    print(f"# J1 jpeg_decode: {len(fixtures)} fixtures equal to PIL's pixels and the plain "
+          f"decode, bit-identical on a second launch; {fixture_ms:.5f} ms device time a "
+          f"fixture ({gpu})", flush=True)
+    del fx
+
+    # -- (b) the JPEG scene, decoded on the card and on the CPU -----------------
+    info = detect_and_load(root, foundation_model="none")
+    stems = [os.path.splitext(ci.name)[0] for ci in info.train_cameras]
+    jroot = os.path.join(tmp, "scene_jpeg")
+    _jpeg_scene(root, jroot, stems, lambda stem: jpeg.encode_jpeg(
+        read_png(os.path.join(root, "images", stem + ".png"))))
+    cpu_px, times = {}, {"parse_ms": [], "host_entropy_ms": [], "h2d_ms": [],
+                         "cpu_plain_decode_s": []}
+    coefs = {}
+    for stem in stems:
+        with open(os.path.join(jroot, "images", stem + ".jpg"), "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        jf = jpeg.parse_jpeg(data, stem)
+        t1 = time.perf_counter()
+        coef = jpeg.entropy_decode_host(jf)
+        t2 = time.perf_counter()
+        cd = torch.from_numpy(coef).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got = jpeg.jpeg_pixels(cd, jf.layout())
+        t4 = time.perf_counter()
+        cpu_px[stem] = jpeg.decode_jpeg(data, "cpu")
+        times["cpu_plain_decode_s"].append(time.perf_counter() - t4)
+        times["parse_ms"].append((t1 - t0) * 1e3)
+        times["host_entropy_ms"].append((t2 - t1) * 1e3)
+        times["h2d_ms"].append((t3 - t2) * 1e3)
+        if got.shape != (HEIGHT, WIDTH, 3) or not torch.equal(got.cpu(), cpu_px[stem]):
+            fail(f"J1 jpeg_decode: {stem}.jpg on the card differs from the CPU's plain decode")
+        coefs[stem] = (cd, jf)
+    # the first frame again at the two samplings Pillow cannot write
+    px0 = read_png(os.path.join(root, "images", stems[0] + ".png"))
+    for label, samp in (("h1v2", ((1, 2), (1, 1), (1, 1))), ("h4v1", ((4, 1), (1, 1), (1, 1)))):
+        data = jpeg.encode_jpeg(px0, sampling=samp)
+        if not torch.equal(jpeg.decode_jpeg(data, dev).cpu(), jpeg.decode_jpeg(data, "cpu")):
+            fail(f"J1 jpeg_decode: {stems[0]} at {label} sampling differs card vs CPU")
+    print(f"# J1 jpeg_decode: {len(stems)} {WIDTH}x{HEIGHT} 4:2:0 frames and {stems[0]} at "
+          f"h1v2 and h4v1 sampling equal on the card to the CPU's plain decode", flush=True)
+    cd0, jf0 = coefs[stems[0]]
+    lay0 = jf0.layout()
+    j1_fn = lambda: jpeg.jpeg_pixels(cd0, lay0)  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = jpeg.jpeg_pixels_plain(cd0, lay0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(plain, j1_fn()):
+        fail("J1 jpeg_decode differs from its plain version on the card")
+    nbytes = cd0.numel() * 2 + HEIGHT * WIDTH * 3
+    # integer operations: ~900 a block (dequantise, two 1-D passes of 8,
+    # descale, range limit), ~40 a pixel (upsampling and colour)
+    ops = jf0.blocks * 900 + HEIGHT * WIDTH * 40
+    j1 = with_bound(dict(
+        name="jpeg_decode", id="J1", route="cuda", source="gags_torch/utils/csrc/jpeg_decode.cu",
+        replaces="none: no TPU kernel (the JAX package decodes with PIL on the host, "
+                 "gags_tpu/cli/train_rgb.py:70)",
+        check="exact", max_abs_err=0.0, ms=device_ms(j1_fn), events_ms=cuda_ms(j1_fn, 20),
+        plain_ms=plain_ms, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        ops_ms=ops / FP32_OPS_PER_S * 1e3, library_ms=None,
+        library="none: no PyTorch call decodes a JPEG (torchvision is absent)",
+        timing="ms, fixture_ms: device time per call, both kernels (torch.profiler); "
+               "events_ms: back-to-back calls between CUDA events; plain_ms and per_frame: "
+               "host clock, the card synchronised",
+        frame=f"{WIDTH}x{HEIGHT} 4:2:0 q75, {jf0.blocks} blocks",
+        fixtures=len(fixtures), fixture_ms=fixture_ms,
+        host_entropy_ms=float(np.median(times["host_entropy_ms"])),
+        per_frame={k: float(np.median(v)) for k, v in times.items()}))
+    print(f"# J1 jpeg_decode per {WIDTH}x{HEIGHT} frame (median of {len(stems)}): parse "
+          f"{j1['per_frame']['parse_ms']:.3f} ms, host entropy "
+          f"{j1['per_frame']['host_entropy_ms']:.3f} ms, H2D {j1['per_frame']['h2d_ms']:.3f} "
+          f"ms, kernels {j1['ms']:.5f} ms device (events {j1['events_ms']:.5f}), bound "
+          f"{j1['bound_ms']:.5f} ms ({j1['bound_by']}), plain on the card {plain_ms:.2f} ms, "
+          f"CPU plain decode {j1['per_frame']['cpu_plain_decode_s']:.2f} s ({gpu})", flush=True)
+    del coefs, plain
+
+    # train through the entry point on the JPEG scene
+    jmodel = os.path.join(tmp, "model_jpeg")
+    cfg = RgbConfig(densify_from_iter=JPEG_STEPS, densify_until_iter=JPEG_STEPS)
+    rc = RunConfig(source_path=jroot, model_path=jmodel, resolution=1, iterations=JPEG_STEPS,
+                   save_iterations="", capacity_factor=4, sh_degree=3, device=str(dev))
+    losses = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    jpeg.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(rc, cfg, on_step=lambda it, st, m: m is not None and losses.append(float(m["loss"])))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**{k: v for k, v in kernels.launch_counts.items() if v}, **jpeg.launch_counts}
+    print(f"# launches during RGB training on the JPEG scene: {launches}", flush=True)
+    if launches["jpeg_decode"] < len(stems):
+        fail(f"J1 jpeg_decode launched {launches['jpeg_decode']} times for {len(stems)} images")
+    for name in ("blend_forward_aligned", "expand_gid", "blend_backward_full"):
+        if launches.get(name, 0) < JPEG_STEPS:
+            fail(f"{name} launched {launches.get(name, 0)} times in {JPEG_STEPS} RGB steps "
+                 f"on the JPEG scene")
+    losses = np.array(losses)
+    if len(losses) != JPEG_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"RGB training on the JPEG scene: losses {losses}")
+    first, last = losses[:10].mean(), losses[-10:].mean()
+    if not last < first:
+        fail(f"RGB loss on the JPEG scene did not fall: first 10 mean {first}, last 10 {last}")
+    print(f"# RGB on the JPEG scene: {JPEG_STEPS} steps in {run_s:.1f} s (set-up included), "
+          f"loss first-10 mean {first:.5f} -> last-10 mean {last:.5f} ({gpu})", flush=True)
+    j1["launches"] = launches["jpeg_decode"]
+
+    # -- (c) -r 2: BICUBIC on the card against the CPU's --------------------
+    jinfo = detect_and_load(jroot, foundation_model="none")
+    for ci in jinfo.train_cameras:
+        cam = camera_from_info(ci, 2)
+        got = load_rgb(ci.image_path, cam.width, cam.height, dev)
+        want = resize_uint8(cpu_px[os.path.splitext(ci.name)[0]], (cam.height, cam.width),
+                            "bicubic")
+        if not torch.equal(got.cpu(), want):
+            fail(f"load_rgb at -r 2 ({cam.width}x{cam.height}) of {ci.name}: card != CPU")
+    print(f"# load_rgb at -r 2: {len(jinfo.train_cameras)} JPEG images resized with BICUBIC "
+          f"on the card equal to the CPU's", flush=True)
+
+    # -- (d) GAS on the JPEG cameras ------------------------------------------
+    groot = os.path.join(tmp, "scene_jpeg_gas")
+    _jpeg_scene(root, groot, stems[:JPEG_GAS_CAMERAS], lambda stem: _read_bytes(
+        os.path.join(jroot, "images", stem + ".jpg")))
+    jpeg.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = gas.run(groot, model, RGB_STEPS, sam_ckpt=os.path.join(root, "sam_vit_h.pth"),
+                  clip_ckpt=os.path.join(root, "clip_b16.pt"), device=dev,
+                  gen_cfg=GeneratorConfig(**GAS_LOWERED), filter_thresholds=GAS_FILTER_LOWERED)
+    gas_s = time.perf_counter() - t0
+    if rep["written"] != JPEG_GAS_CAMERAS:
+        fail(f"GAS on the JPEG cameras wrote {rep['written']} of {JPEG_GAS_CAMERAS}")
+    j1["gas_launches"] = jpeg.launch_counts["jpeg_decode"]
+    print(f"# GAS on {JPEG_GAS_CAMERAS} JPEG cameras (lowered thresholds): every camera "
+          f"written, masks kept {[sum(v.values()) for v in rep['images'].values()]}, "
+          f"{gas_s:.1f} s with loading, J1 launches {j1['gas_launches']} ({gpu})", flush=True)
+
+    # -- (e) convert's pyramid, card against CPU ------------------------------
+    written = {}
+    for where, d in ((dev, "convert_card"), (torch.device("cpu"), "convert_cpu")):
+        work = os.path.join(tmp, d)
+        shutil.copytree(os.path.join(jroot, "images"), os.path.join(work, "images"))
+        jpeg.reset_launch_counts()
+        t0 = time.perf_counter()
+        convert._resize_pyramid(work, where)
+        written[d] = (time.perf_counter() - t0, jpeg.launch_counts["jpeg_decode"], {
+            (div, n): _read_bytes(os.path.join(work, f"images_{div}", n))
+            for div in (2, 4, 8) for n in sorted(os.listdir(os.path.join(work, "images")))})
+    card, cpu = written["convert_card"][2], written["convert_cpu"][2]
+    if card != cpu:
+        fail(f"convert's pyramid: {sum(card[k] != cpu[k] for k in cpu)} files differ card vs CPU")
+    j1["convert_launches"] = written["convert_card"][1]
+    print(f"# convert --resize: {len(card)} LANCZOS pyramid files of {len(stems)} JPEGs "
+          f"byte for byte the CPU's, {written['convert_card'][0]:.1f} s on the card, "
+          f"{written['convert_cpu'][0]:.1f} s on the CPU", flush=True)
+    j1["phase_s"] = time.perf_counter() - t_phase
+    print(f"# phase 18 (JPEG scenes) took {j1['phase_s']:.1f} s", flush=True)
+    return j1
 
 
 # phase 15: the two TPU probes' kernels (P1 vpu_chain, P2 slab_chain)
@@ -3347,7 +3610,10 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _kernels.build(list(kernels.SOURCES) + list(probes.SOURCES))
+    from gags_torch.utils import jpeg
+
+    logs = _kernels.build(list(kernels.SOURCES) + list(probes.SOURCES)
+                          + [jpeg.JPEG_DECODE_SRC])
     print(f"# {len(logs)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     for log in logs.values():
         for line in ptxas_summary(log):
@@ -3542,8 +3808,9 @@ def main() -> int:
         r["surface_gad_launches"] = surf_gad.get(r["name"], 0)
 
     # -- 10-13. RGB pretraining, K8; 14. GAS on its scene and model --------------
-    k8, k3_rgb, k1_rgb, k6_rgb, gas_report = rgb_phase(
-        dev, gpu, lambda root, model: gas_phase(root, model, dev, gpu))
+    k8, k3_rgb, k1_rgb, k6_rgb, (gas_report, j1) = rgb_phase(
+        dev, gpu, lambda root, model: (gas_phase(root, model, dev, gpu),
+                                       jpeg_phase(root, model, dev, gpu)))
     rgb_kernels = [k8]
     for r in k3_rgb.values():  # two launches a step: C = 3 and C = 8
         r["launches"] = k8["rgb_launches"]["sorted_segment_sum"] // 2
@@ -3627,6 +3894,8 @@ def main() -> int:
                        for k, r in render_runs.items()},
     })
     kernels_line["kernels"].extend(probe_kernels)
+    kernels_line["kernels"].append(
+        {**{k: j1[k] for k in keep}, **{k: v for k, v in j1.items() if k not in keep}})
     for r in kernels_line["kernels"]:  # phase 16: launches inside the ranks, by path
         r["distributed_launches"] = {path: counts.get(r["name"], 0)
                                      for path, counts in multi["distributed_launches"].items()}

@@ -3,11 +3,15 @@
 Runs feature extraction → exhaustive matching → mapping → undistortion
 through the external `colmap` binary (a subprocess each, not os.system),
 then moves the undistorted model into `sparse/0`; `--resize` writes the
-half, quarter and eighth size image pyramids (PIL's LANCZOS in place of
-ImageMagick, so it needs PIL).
+half, quarter and eighth size image pyramids as the JAX CLI does (PIL's
+LANCZOS in place of ImageMagick), without PIL: each image decoded and
+resampled with Pillow's LANCZOS filter on the device (`--device`, default
+cuda), then written in its own format by its extension, a JPEG by
+`utils.jpeg.encode_jpeg` at Pillow's save defaults (a grey JPEG stays
+grey), a PNG by `utils.image.encode_png` as 8-bit RGB.
 
   python -m gags_torch.cli.convert -s <dir with input/ images> [--no_gpu]
-      [--resize] [--camera OPENCV] [--colmap_executable colmap]
+      [--resize] [--camera OPENCV] [--colmap_executable colmap] [--device cpu]
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ import os
 import shutil
 import subprocess
 
+from gags_torch import resolve_device
+from gags_torch.utils.image import encode_png, read_rgb, resize_uint8
+from gags_torch.utils.jpeg import encode_jpeg, is_jpeg, parse_jpeg
+
 
 def _call(cmd) -> None:
     print("+", " ".join(cmd))
@@ -25,23 +33,34 @@ def _call(cmd) -> None:
         raise SystemExit(f"command failed ({res.returncode}): {' '.join(cmd)}")
 
 
-def _resize_pyramid(src: str) -> None:
-    try:
-        from PIL import Image
-    except ImportError:
-        raise SystemExit("--resize needs PIL (Pillow), which is not installed") from None
-    for div in (2, 4, 8):
-        out_dir = os.path.join(src, f"images_{div}")
-        os.makedirs(out_dir, exist_ok=True)
-        for name in os.listdir(os.path.join(src, "images")):
-            img = Image.open(os.path.join(src, "images", name))
-            img.resize((img.width // div, img.height // div), Image.LANCZOS).save(
-                os.path.join(out_dir, name))
+def _resize_pyramid(src: str, device="cuda") -> None:
+    dev = resolve_device(device)
+    for name in sorted(os.listdir(os.path.join(src, "images"))):
+        path = os.path.join(src, "images", name)
+        with open(path, "rb") as f:
+            data = f.read()
+        grey = is_jpeg(data) and parse_jpeg(data, path).colour == "grey"
+        img = read_rgb(path, dev)
+        h, w = img.shape[:2]
+        for div in (2, 4, 8):
+            out_dir = os.path.join(src, f"images_{div}")
+            os.makedirs(out_dir, exist_ok=True)
+            small = resize_uint8(img, (h // div, w // div), "lanczos").cpu().numpy()
+            if name.lower().endswith((".jpg", ".jpeg")):
+                data = encode_jpeg(small[..., 0] if grey else small)
+            elif name.lower().endswith(".png"):
+                data = encode_png(small)
+            else:
+                raise SystemExit(f"{path}: --resize writes .jpg, .jpeg and .png files only")
+            with open(os.path.join(out_dir, name), "wb") as f:
+                f.write(data)
 
 
 def run(source_path: str, camera: str = "OPENCV", colmap_executable: str = "colmap",
-        no_gpu: bool = False, skip_matching: bool = False, resize: bool = False) -> None:
+        no_gpu: bool = False, skip_matching: bool = False, resize: bool = False,
+        device="cuda") -> None:
     src, colmap = source_path, colmap_executable
+    dev = resolve_device(device) if resize else None  # refused before COLMAP runs
     gpu = "0" if no_gpu else "1"
     if not skip_matching:
         os.makedirs(os.path.join(src, "distorted", "sparse"), exist_ok=True)
@@ -71,7 +90,7 @@ def run(source_path: str, camera: str = "OPENCV", colmap_executable: str = "colm
         if f != "0":
             shutil.move(os.path.join(sparse, f), os.path.join(sparse, "0", f))
     if resize:
-        _resize_pyramid(src)
+        _resize_pyramid(src, dev)
     print("done.")
 
 
@@ -83,6 +102,7 @@ def main(argv=None):
     p.add_argument("--no_gpu", action="store_true")
     p.add_argument("--skip_matching", action="store_true")
     p.add_argument("--resize", action="store_true")
+    p.add_argument("--device", default="cuda", help="where --resize decodes and resamples")
     run(**vars(p.parse_args(argv)))
 
 

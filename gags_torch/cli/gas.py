@@ -13,10 +13,9 @@ Checkpoints are the user's (none ships with the repository):
   python -m gags_torch.cli.gas -s <scene> -m <model_dir> --iteration 30000 \
       --sam_ckpt ... --clip_ckpt ... [--encoder_batch 4] [--bf16] [--device cpu]
 
-Images are decoded without PIL when they are 8-bit grey, RGB or RGBA PNGs
-(utils.image.read_png) and downscaled past 1080 rows with PIL's bilinear
-filter computed without PIL (utils.image.resize_uint8_bilinear); any
-other file needs PIL and, without it, raises naming the file.
+Images (JPEG or 8-bit PNG) are decoded without PIL on the device
+(utils.image.read_rgb) and downscaled past 1080 rows with PIL's bilinear
+filter computed without PIL (utils.image.resize_uint8_bilinear).
 `--bf16` rounds the SAM and CLIP weights to bfloat16 and computes in
 float32, which is what the JAX package's flag computes (its bf16
 parameters meet float32 inputs, and every op promotes to float32).
@@ -48,15 +47,15 @@ FILTER_THRESHOLDS = dict(iou_thr=0.8, score_thr=0.7, inner_thr=0.5)  # filter_ma
 CROP_BATCH = 256  # mask crops per CLIP batch
 
 
-def load_image_1080p(path: str) -> np.ndarray:
-    """An image as uint8 (H, W, 3), downscaled to 1080 rows when taller (the
-    reference caps GAS input at 1080p), as PIL's convert("RGB") and
-    BILINEAR resize give it."""
-    img = read_rgb(path)
+def load_image_1080p(path: str, device="cuda") -> np.ndarray:
+    """An image as uint8 (H, W, 3) on the host, decoded and downscaled to
+    1080 rows when taller (the reference caps GAS input at 1080p) on
+    `device`, as PIL's convert("RGB") and BILINEAR resize give it."""
+    img = read_rgb(path, device)
     h, w = img.shape[:2]
     if h > 1080:
         img = resize_uint8_bilinear(img, (1080, int(round(w * 1080 / h))))
-    return np.ascontiguousarray(img)
+    return np.ascontiguousarray(img.cpu().numpy())
 
 
 def round_weights_bf16(module: torch.nn.Module) -> torch.nn.Module:
@@ -126,7 +125,7 @@ def run(source_path: str, model_path: str, iteration: int = 30000, *, sam_ckpt: 
         work = []
         for ci in cams[g0:g0 + eb]:
             name = os.path.splitext(ci.name)[0]
-            image = load_image_1080p(ci.image_path)
+            image = load_image_1080p(ci.image_path, dev)
             h, w = image.shape[:2]
             # the depth maps may be at another resolution than the image
             depth = resize_map(np.load(os.path.join(depth_dir, name + "_depth.npy")), (h, w))

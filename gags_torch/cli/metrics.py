@@ -10,8 +10,8 @@ method's means) and `per_view.json` in the reference's format.
       [--split test] [--vgg_ckpt <features.pth> --lpips_lin_ckpt <lin.pth>
       [--lpips_net vgg|alex|squeeze]] [--device cpu]
 
-Images are read by `utils/image.read_rgb` (8-bit PNGs without PIL; any
-other format needs PIL). Convolutions run in float32 (TF32 off).
+Images (JPEG or 8-bit PNG) are decoded by `utils/image.read_rgb` on the
+device, without PIL. Convolutions run in float32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from gags_torch.utils.metrics import psnr, ssim
 
 
 def _load(path: str, device) -> torch.Tensor:
-    return torch.as_tensor(read_rgb(path).astype(np.float32) / 255.0, device=device)
+    return read_rgb(path, device).to(torch.float32) / 255.0
 
 
 @torch.no_grad()

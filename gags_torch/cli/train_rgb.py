@@ -13,8 +13,10 @@ per-group Adam and clone / split / prune on the device (default "cuda";
 "cpu" runs the kernels' plain versions). At each save iteration it writes
 the reference-layout `point_cloud/iteration_N/point_cloud.ply`, which
 `GaussianScene.from_ply` and `gags_torch.cli.train_gad --ply` read.
-Images are read with the port's PNG decoder when they are PNGs of the
-camera's size; other images need PIL (see `utils.image.load_rgb`).
+Images (JPEG or 8-bit PNG) are decoded without PIL on the device and
+resized to the camera's size with Pillow's BICUBIC filter, as the JAX
+CLI's `Image.open(p).convert("RGB").resize(...)` gives them
+(`utils.image.load_rgb`).
 """
 
 from __future__ import annotations
@@ -84,8 +86,7 @@ def run(rc: RunConfig, rgb_cfg: Optional[RgbConfig] = None,
         cam = camera_from_info(ci, rc.resolution).to(dev)
         cams.append(cam)
         # kept as 8-bit on the device; the step reads img / 255 in float32
-        images.append(torch.as_tensor(load_rgb(ci.image_path, cam.width, cam.height),
-                                      device=dev))
+        images.append(load_rgb(ci.image_path, cam.width, cam.height, dev))
     w, h = cams[0].width, cams[0].height
     step = make_rgb_step(cfg, w, h, spatial_scale=info.radius)
 

@@ -5,10 +5,11 @@ Counterpart of the reference's `utils/SAM_utils.py:390-622` __main__
 harness, the regression tool for the prompt builders: for each image it
 saves a 2x2 panel of (image + prompt points), (rendered depth), (depth
 samples), (prompts per cell). Needs matplotlib (imported when it runs);
-reads the render CLI's `_depth.npy` maps and depth_sample's maps.
+reads the render CLI's `_depth.npy` maps and depth_sample's maps, and the
+images (JPEG or 8-bit PNG) without PIL, decoded on the device.
 
   python -m gags_torch.cli.visualize_prompts -s <scene> -m <model_dir> \\
-      --iteration 30000 [-n 4] [-o prompts_vis/]
+      --iteration 30000 [-n 4] [-o prompts_vis/] [--device cpu]
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import List
 
 import numpy as np
 
+from gags_torch import resolve_device
 from gags_torch.gas.data_utils import resize_map
 from gags_torch.gas.prompts import build_mindepth_point_grid
 from gags_torch.scene.dataset import detect_and_load
@@ -26,8 +28,9 @@ from gags_torch.utils.image import read_rgb
 
 
 def run(source_path: str, model_path: str, iteration: int = 30000, num_images: int = 4,
-        output: str = "", seed: int = 42) -> List[str]:
+        output: str = "", seed: int = 42, device="cuda") -> List[str]:
     """Write one `<image>_prompts.png` panel per image; returns their paths."""
+    dev = resolve_device(device)
     import matplotlib
 
     matplotlib.use("Agg")
@@ -42,7 +45,7 @@ def run(source_path: str, model_path: str, iteration: int = 30000, num_images: i
     written = []
     for ci in info.train_cameras[:num_images]:
         name = os.path.splitext(ci.name)[0]
-        img = read_rgb(ci.image_path)
+        img = read_rgb(ci.image_path, dev).cpu().numpy()
         h, w = img.shape[:2]
         depth = resize_map(np.load(os.path.join(depth_dir, name + "_depth.npy")), (h, w))
         sample = resize_map(np.load(os.path.join(sample_dir, name + "_depth_sample.npy")),
@@ -83,6 +86,7 @@ def main(argv=None):
     p.add_argument("-n", "--num_images", type=int, default=4)
     p.add_argument("-o", "--output", default="")
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda")
     run(**vars(p.parse_args(argv)))
 
 

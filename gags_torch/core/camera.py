@@ -32,6 +32,20 @@ def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
     return Rt.astype(np.float32)
 
 
+def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """The OpenGL-style perspective matrix (4, 4) float32 of the reference's
+    viewer cameras; the rasterizer works from pinhole intrinsics."""
+    top = math.tan(fovy / 2.0) * znear
+    right = math.tan(fovx / 2.0) * znear
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P
+
+
 def intrinsics_from_fov(fovx: float, fovy: float, width: int, height: int) -> np.ndarray:
     """3x3 K from FoV, principal point at the image centre."""
     fx = fov_to_focal(fovx, width)

@@ -19,3 +19,21 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1.0 - x))
+
+
+def build_scaling_rotation(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s), (..., 3, 3): the factor of the 3D covariance."""
+    return quat_to_rotmat(quats) * scales[..., None, :]
+
+
+def build_covariance_3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """Sigma = R S S^T R^T, (..., 3, 3), in float32 (L L^T)."""
+    m = build_scaling_rotation(scales, quats)
+    return m @ m.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """The upper triangle of symmetric (..., 3, 3) as (..., 6): xx, xy, xz,
+    yy, yz, zz."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2], cov[..., 1, 1],
+                        cov[..., 1, 2], cov[..., 2, 2]], dim=-1)

@@ -27,6 +27,17 @@ def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(x - y))
 
 
+def l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.mean((x - y) ** 2)
+
+
+def cosine_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """1 - mean cosine similarity along the channel dim."""
+    num = torch.sum(x * y, dim=-1)
+    den = torch.linalg.norm(x, dim=-1) * torch.linalg.norm(y, dim=-1)
+    return 1.0 - torch.mean(num / torch.clamp(den, min=1e-8))
+
+
 def l1_map(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Per-pixel L1 averaged over channels: (H, W, C) → (H, W)."""
     return channel_mean(torch.abs(x - y))

@@ -5,17 +5,21 @@ decoder.
 nearest: src = floor(dst * in/out); bilinear with align_corners=True:
 src = dst * (in-1)/(out-1). Written as explicit gathers, channel-LAST like
 the JAX package: (H, W, C) or (H, W). PNGs are written and read with zlib
-and struct from the standard library (no imaging package is needed for a
-PNG of the camera's size).
+and struct from the standard library, JPEGs by `utils.jpeg`, and Pillow's
+BILINEAR, BICUBIC and LANCZOS resamples computed here: no imaging package
+is needed.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
 import numpy as np
 import torch
+
+from gags_torch import resolve_device
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
@@ -24,8 +28,8 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(img01: np.ndarray) -> bytes:
-    """(H, W, 3) floats in [0, 1] → 8-bit RGB PNG bytes."""
-    a = (np.clip(img01, 0, 1) * 255).astype(np.uint8)
+    """(H, W, 3) floats in [0, 1], or uint8 as it is, → 8-bit RGB PNG bytes."""
+    a = img01 if img01.dtype == np.uint8 else (np.clip(img01, 0, 1) * 255).astype(np.uint8)
     h, w = a.shape[:2]
     rows = np.concatenate([np.zeros((h, 1), np.uint8), a.reshape(h, w * 3)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit RGB
@@ -109,81 +113,112 @@ def _decodable_png(head: bytes) -> bool:
             and head[24] == 8 and head[25] in _PNG_CHANNELS and not head[28])
 
 
-def _pil_rgb(path: str, why: str):
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ValueError(f"{path}: {why}") from None
-    return Image.open(path).convert("RGB")
+def read_rgb(path: str, device="cuda") -> torch.Tensor:
+    """An image file as (H, W, 3) uint8 on `device` at its own size, the
+    pixels PIL's `Image.open(p).convert("RGB")` gives, without PIL: a JPEG
+    through `utils.jpeg` (on a CUDA device its host entropy decoder and the
+    J1 kernel, on the CPU the plain decoder), an 8-bit grey, RGB or RGBA
+    PNG without interlace through `read_png` (grey replicated, alpha
+    dropped). Any other file raises ValueError naming it. The default
+    device is the card: without one it raises unless `device="cpu"`."""
+    from gags_torch.utils.jpeg import decode_jpeg, is_jpeg
 
-
-def read_rgb(path: str) -> np.ndarray:
-    """An image file as (H, W, 3) uint8 at its own size, the pixels PIL's
-    `Image.open(p).convert("RGB")` gives: an 8-bit grey, RGB or RGBA PNG
-    without interlace is decoded by `read_png` (grey replicated, alpha
-    dropped); any other file needs PIL and, without it, raises ValueError
-    naming the file."""
+    device = resolve_device(device)
     with open(path, "rb") as f:
-        head = f.read(29)
-    if _decodable_png(head):
+        data = f.read()
+    if is_jpeg(data):
+        return decode_jpeg(data, device, path)
+    if _decodable_png(data[:29]):
         px = read_png(path)
-        return np.repeat(px[..., :1], 3, axis=-1) if px.shape[-1] <= 2 else px[..., :3]
-    return np.asarray(_pil_rgb(path, "without PIL (not installed) only an 8-bit grey, RGB "
-                                     "or RGBA PNG without interlace is read"), np.uint8)
+        px = np.repeat(px[..., :1], 3, axis=-1) if px.shape[-1] <= 2 else px[..., :3]
+        return torch.from_numpy(np.ascontiguousarray(px)).to(device)
+    raise ValueError(f"{path}: neither a JPEG nor an 8-bit grey, RGB or RGBA PNG without "
+                     f"interlace (the formats read without PIL)")
 
 
-def load_rgb(path: str, width: int, height: int) -> np.ndarray:
-    """An image file as (height, width, 3) uint8, the pixels the JAX package
-    loads (`Image.open(p).convert("RGB").resize((w, h))`; it then divides
-    by 255 in float32, as the RGB trainer does on the device): a PNG
-    of that size is decoded by `read_rgb` (PIL's resize to the same size
-    is the identity). Any other file or size goes through PIL when it can
-    be imported; without PIL it raises ValueError naming the file and the
-    two sizes. Nothing is resized by another method."""
-    with open(path, "rb") as f:
-        head = f.read(29)
-    png = len(head) == 29 and head[:8] == _PNG_MAGIC and head[12:16] == b"IHDR"
-    size = struct.unpack(">II", head[16:24]) if png else None
-    if size == (width, height) and _decodable_png(head):
-        return read_rgb(path)
-    img = _pil_rgb(path, f"image size {size or 'unknown (not a PNG)'}, camera size "
-                         f"{(width, height)}: without PIL (not installed) only an 8-bit grey, "
-                         f"RGB or RGBA PNG of the camera's size is read")
-    return np.asarray(img.resize((width, height)), np.uint8)
+def load_rgb(path: str, width: int, height: int, device="cuda") -> torch.Tensor:
+    """An image file as (height, width, 3) uint8 on `device`, the pixels the
+    JAX package loads (`Image.open(p).convert("RGB").resize((w, h))`, whose
+    default filter is BICUBIC; it then divides by 255 in float32, as the
+    RGB trainer does on the device): `read_rgb`, then Pillow's BICUBIC
+    resample (`resize_uint8`) on the device where the size differs."""
+    img = read_rgb(path, device)
+    if tuple(img.shape[:2]) != (height, width):
+        img = resize_uint8(img, (height, width), "bicubic")
+    return img
 
 
 _PIL_PRECISION_BITS = 22  # Pillow's Resample.c: 32 - 8 - 2
 
 
-def _pil_bilinear_taps(n_in: int, n_out: int):
-    """Pillow's precompute_coeffs + normalize_coeffs_8bpc for its BILINEAR
-    (triangle) filter: per output index the first input index and the
-    integer weights of its taps, (n_out,) and (n_out, taps), computed in
-    float64 in Pillow's order of operations."""
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+def _bicubic(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
+
+
+# Pillow's filters: support, and the function it evaluates at each tap
+_PIL_FILTERS = {"bilinear": (1.0, _triangle), "bicubic": (2.0, _bicubic),
+                "lanczos": (3.0, _lanczos)}
+
+
+def _pil_taps(n_in: int, n_out: int, resample: str):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc: per output index
+    the first input index and the integer weights of its taps, (n_out,)
+    and (n_out, taps), in float64 in Pillow's order of operations, each
+    tap's filter value from the C library's sin (math.sin) as Pillow's
+    is; a negative weight rounds away from zero."""
+    support, fn = _PIL_FILTERS[resample]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(n_out) + 0.5) * scale
-    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
-    xmax = np.minimum(np.trunc(center + support + 0.5), n_in).astype(np.int64) - xmin
-    taps = np.arange(ksize)
-    w = 1.0 - np.abs(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5) / filterscale)
-    w = np.where((w > 0) & (taps[None, :] < xmax[:, None]), w, 0.0)
-    total = np.zeros(n_out)
-    for t in range(ksize):  # the C loop's order of addition
-        total = total + w[:, t]
-    w = w / np.where(total != 0, total, 1.0)[:, None]
-    kk = np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int32)
+    support = support * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    ss = 1.0 / filterscale
+    xmin = np.zeros(n_out, np.int64)
+    kk = np.zeros((n_out, ksize), np.int32)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        n = min(int(center + support + 0.5), n_in) - lo
+        w = [fn((x + lo - center + 0.5) * ss) for x in range(n)]
+        total = 0.0
+        for v in w:  # the C loop's order of addition
+            total += v
+        if total != 0.0:
+            w = [v / total for v in w]
+        xmin[xx] = lo
+        kk[xx, :n] = [int((-0.5 if v < 0 else 0.5) + v * (1 << _PIL_PRECISION_BITS)) for v in w]
     return xmin, kk
 
 
-def _pil_pass(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
-    """One 8-bit pass of Pillow's resample along `axis` of an int32 tensor
-    (the weights sum to ~2^22, so 255 times them fits in 31 bits; integer
-    arithmetic is exact on any device)."""
+def _pil_pass(x: torch.Tensor, axis: int, n_out: int, resample: str) -> torch.Tensor:
+    """One 8-bit pass of Pillow's resample along `axis` of an int32 tensor:
+    22-bit integer weights, the sum started at half a unit, shifted
+    arithmetically (a negative sum floors) and clipped to 0..255. The
+    positive weights of a row sum to under 1.3 * 2^22, so 255 times them
+    fits in 31 bits; integer arithmetic is exact on any device."""
     n_in = x.shape[axis]
-    xmin, kk = _pil_bilinear_taps(n_in, n_out)
+    xmin, kk = _pil_taps(n_in, n_out, resample)
     x = x.movedim(axis, 0)
     first = torch.as_tensor(xmin, device=x.device)
     kk = torch.as_tensor(kk, device=x.device)
@@ -195,22 +230,28 @@ def _pil_pass(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
     return (acc >> _PIL_PRECISION_BITS).clamp_(0, 255).movedim(0, axis)
 
 
-def resize_uint8_bilinear(img, out_hw):
-    """(H, W, C) uint8 → out_hw uint8, as PIL's Image.resize(..., BILINEAR)
-    computes it, without PIL: Pillow's antialiased triangle filter with its
-    22-bit integer weights, along the width first, then along the height,
-    each pass rounded half up to 8 bits (Resample.c). A numpy array gives
+def resize_uint8(img, out_hw, resample: str):
+    """(H, W, C) uint8 → out_hw uint8, as PIL's Image.resize(..., resample)
+    computes it for "bilinear", "bicubic" (Pillow's default filter; a =
+    -0.5) or "lanczos", without PIL: the filter widened by the scale where an axis
+    shrinks, 22-bit integer weights, along the width first, then along the
+    height, each pass rounded to 8 bits (Resample.c). A numpy array gives
     a numpy array; a tensor gives a tensor on its own device."""
     as_numpy = isinstance(img, np.ndarray)
     x = (torch.from_numpy(np.ascontiguousarray(img)) if as_numpy else img).to(torch.int32)
     h, w = x.shape[:2]
     h_out, w_out = out_hw
     if w_out != w:
-        x = _pil_pass(x, 1, w_out)
+        x = _pil_pass(x, 1, w_out, resample)
     if h_out != h:
-        x = _pil_pass(x, 0, h_out)
+        x = _pil_pass(x, 0, h_out, resample)
     x = x.to(torch.uint8)
     return x.numpy() if as_numpy else x
+
+
+def resize_uint8_bilinear(img, out_hw):
+    """`resize_uint8` with Pillow's BILINEAR filter."""
+    return resize_uint8(img, out_hw, "bilinear")
 
 
 def resize_like_jax(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """gags_torch.cli.convert against gags_tpu.cli.convert with a fake `colmap`
 executable that logs its argv: the same command sequence (the source dir
-written as <src>), the undistorted model moved into sparse/0, and a clear
-error for --resize where PIL cannot be imported."""
+written as <src>), the undistorted model moved into sparse/0, and --resize
+where PIL cannot be imported: the pyramid the JAX CLI's PIL writes."""
 
+import io
 import json
 import os
 import stat
 import sys
 
+import numpy as np
 import pytest
 
 from gags_torch.cli import convert
@@ -71,8 +73,31 @@ def test_convert_fails_on_a_colmap_error(tmp_path):
 
 
 def test_resize_without_pil_says_so(tmp_path, monkeypatch):
+    """--resize with PIL unimportable writes what the JAX CLI's PIL writes
+    (LANCZOS, saved in the source's format): the same JPEG bytes and PNG
+    pixels."""
+    from PIL import Image
+
+    from gags_torch.utils.image import read_rgb
+
     colmap, _ = _fake_colmap(tmp_path)
+    src = tmp_path / "scene"
+    os.makedirs(src / "images")
+    a = np.random.default_rng(0).integers(0, 256, (37, 53, 3), np.uint8)
+    Image.fromarray(a).save(src / "images" / "a.jpg")
+    Image.fromarray(a).save(src / "images" / "b.png")
+    want = {}
+    for name, fmt in (("a.jpg", "JPEG"), ("b.png", "PNG")):
+        img = Image.open(src / "images" / name)
+        for div in (2, 4, 8):
+            buf = io.BytesIO()
+            img.resize((img.width // div, img.height // div), Image.LANCZOS).save(buf, fmt)
+            want[name, div] = (buf.getvalue(), np.asarray(Image.open(buf).convert("RGB")))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(SystemExit, match="--resize needs PIL"):
-        convert.run(str(tmp_path / "scene"), colmap_executable=colmap, skip_matching=True,
-                    resize=True)
+    convert.run(str(src), colmap_executable=colmap, skip_matching=True, resize=True,
+                device="cpu")
+    for (name, div), (data, px) in want.items():
+        path = src / f"images_{div}" / name
+        if name.endswith(".jpg"):
+            assert path.read_bytes() == data
+        np.testing.assert_array_equal(read_rgb(str(path), "cpu").numpy(), px)

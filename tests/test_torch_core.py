@@ -84,3 +84,27 @@ def test_quat_to_rotmat_matches():
         ttr.quat_to_rotmat(torch.as_tensor(q)).numpy(),
         np.asarray(jtr.quat_to_rotmat(jnp.asarray(q))), atol=TOL, rtol=TOL,
     )
+
+
+def test_covariance_helpers_match():
+    """build_scaling_rotation, build_covariance_3d (JAX's einsum at
+    HIGHEST against a float32 matmul) and strip_symmetric."""
+    rng = np.random.default_rng(6)
+    q = rng.normal(size=(40, 4)).astype(np.float32)
+    s = rng.uniform(0.01, 2.0, size=(40, 3)).astype(np.float32)
+    tq, ts = torch.as_tensor(q), torch.as_tensor(s)
+    np.testing.assert_allclose(ttr.build_scaling_rotation(ts, tq).numpy(),
+                               np.asarray(jtr.build_scaling_rotation(jnp.asarray(s), jnp.asarray(q))),
+                               atol=TOL, rtol=TOL)
+    cov = ttr.build_covariance_3d(ts, tq)
+    want = np.asarray(jtr.build_covariance_3d(jnp.asarray(s), jnp.asarray(q)))
+    np.testing.assert_allclose(cov.numpy(), want, atol=TOL, rtol=TOL)
+    np.testing.assert_array_equal(ttr.strip_symmetric(cov).numpy(),
+                                  np.asarray(jtr.strip_symmetric(jnp.asarray(cov.numpy()))))
+
+
+@pytest.mark.parametrize("znear,zfar,fovx,fovy", [(0.01, 100.0, 1.2, 0.8), (0.2, 5.0, 0.3, 0.5)])
+def test_projection_matrix_matches(znear, zfar, fovx, fovy):
+    got = tcam.projection_matrix(znear, zfar, fovx, fovy)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, jcam.projection_matrix(znear, zfar, fovx, fovy))

@@ -264,12 +264,13 @@ def test_resize_like_jax(hw, out, atol):
 
 
 def test_read_rgb_without_pil(tmp_path, monkeypatch):
+    """With PIL unimportable, a PNG and a JPEG decode to PIL's pixels."""
     import sys
 
     rgba = np.random.default_rng(0).integers(0, 255, (9, 11, 4), np.uint8)
     Image.fromarray(rgba).save(tmp_path / "a.png")
     Image.fromarray(rgba[..., :3]).save(tmp_path / "b.jpg")
+    want_jpg = np.asarray(Image.open(tmp_path / "b.jpg").convert("RGB"))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    _same(read_rgb(str(tmp_path / "a.png")), rgba[..., :3])
-    with pytest.raises(ValueError, match="b.jpg"):
-        read_rgb(str(tmp_path / "b.jpg"))
+    _same(read_rgb(str(tmp_path / "a.png"), "cpu"), rgba[..., :3])
+    _same(read_rgb(str(tmp_path / "b.jpg"), "cpu"), want_jpg)

@@ -151,6 +151,10 @@ def _jax_gas(gas_run):
 
 
 def test_gas_language_features_match_jax(gas_run):
+    _check_gas_matches_jax(gas_run)
+
+
+def _check_gas_matches_jax(gas_run):
     rep = gas_run["gas"]
     assert rep["written"] == 3 and len(rep["images"]) == 3
     want = _jax_gas(gas_run)
@@ -163,6 +167,52 @@ def test_gas_language_features_match_jax(gas_run):
         np.testing.assert_array_equal(s, s_j.astype(np.float32))
         assert _f16_step(f, f_j).max() <= 1.0
         assert sum(rep["images"][name].values()) == f.shape[0]
+
+
+@pytest.fixture(scope="module")
+def gas_run_jpeg(gas_run):
+    """gas_run's scene with its images saved as JPEG by PIL (quality 90,
+    4:2:0) under .jpg names, through the port's GAS CLI."""
+    from PIL import Image
+
+    from gags_torch.scene import colmap as cm
+
+    root = str(gas_run["tmp"] / "scene_jpeg")
+    shutil.copytree(gas_run["root"], root, ignore=shutil.ignore_patterns("language_features"))
+    path = os.path.join(root, "sparse", "0", "images.bin")
+    imgs = cm.read_images_binary(path)
+    for k, im in imgs.items():
+        png = os.path.join(root, "images", im.name)
+        name = os.path.splitext(im.name)[0] + ".jpg"
+        Image.open(png).convert("RGB").save(os.path.join(root, "images", name), quality=90)
+        os.remove(png)
+        imgs[k] = im._replace(name=name)
+    cm.write_images_binary(path, imgs)
+    tmp = gas_run["tmp"]
+    report = gas.run(root, gas_run["model"], ITER, sam_ckpt=str(tmp / "sam.pth"),
+                     clip_ckpt=str(tmp / "clip.pt"), seed=SEED, gen_cfg=GeneratorConfig(**GEN),
+                     filter_thresholds=FILTER, sam_cfg=SAMConfig.tiny(),
+                     clip_cfg=CLIPConfig.tiny(), device="cpu")
+    return dict(gas_run, root=root, gas=report)
+
+
+def test_gas_on_jpeg_images_matches_jax(gas_run_jpeg):
+    """The JAX loop reads the JPEGs through PIL, the port without it: the
+    same seg maps, embeddings within one float16 step."""
+    _check_gas_matches_jax(gas_run_jpeg)
+
+
+def test_load_image_1080p_matches_jax_on_a_tall_jpeg(tmp_path):
+    from PIL import Image
+
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:1100, 0:40]
+    a = np.stack([xx * 6, yy % 256, (xx + yy) % 256], -1) + rng.normal(0, 8, (1100, 40, 3))
+    p = str(tmp_path / "tall.jpg")
+    Image.fromarray(np.clip(a, 0, 255).astype(np.uint8)).save(p)
+    got = gas.load_image_1080p(p, "cpu")
+    assert isinstance(got, np.ndarray) and got.shape == (1080, 39, 3)
+    np.testing.assert_array_equal(got, jload_image(p))
 
 
 def test_gas_output_feeds_gad(gas_run):
@@ -259,7 +309,7 @@ def test_visualize_prompts_writes_a_panel_per_image(gas_run, tmp_path, monkeypat
 
     root, model = gas_run["root"], gas_run["model"]
     out = str(tmp_path / "vis")
-    paths = visualize_prompts.run(root, model, ITER, num_images=4, output=out)
+    paths = visualize_prompts.run(root, model, ITER, num_images=4, output=out, device="cpu")
     lines = capsys.readouterr().out.strip().splitlines()
     names = [os.path.splitext(ci.name)[0]
              for ci in detect_and_load(root, foundation_model="none").train_cameras]

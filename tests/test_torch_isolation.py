@@ -40,6 +40,13 @@ def test_no_jax_imports_in_port():
     assert not {k: v for k, v in bad.items() if v}
 
 
+def test_no_pil_imports_in_port():
+    """Images are read and written without PIL (absent on the card's
+    machine): no module of the package imports it, not even lazily."""
+    bad = [str(p.relative_to(ROOT)) for p in _port_files() if "PIL" in set(_imported_roots(p))]
+    assert not bad
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -58,6 +65,7 @@ def test_port_imports_with_jax_blocked():
         "import gags_torch.gad.interop, gags_torch.gad.autotune, gags_torch.utils.lpips\n"
         "import gags_torch.utils.viewer, gags_torch.utils._surface_scene\n"
         "import gags_torch.cli.metrics, gags_torch.cli.convert, gags_torch.cli.visualize_prompts\n"
+        "import gags_torch.utils.jpeg, gags_torch.utils.image\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -122,6 +130,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         metrics_cli.run(["/nonexistent"])
     with pytest.raises(RuntimeError, match="CUDA"):
         load_reference_checkpoint("/nonexistent.pth")
+    from gags_torch.cli import convert, gas, visualize_prompts
+    from gags_torch.utils.image import load_rgb, read_rgb
+    from gags_torch.utils.jpeg import decode_jpeg
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        read_rgb("/nonexistent.jpg")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_rgb("/nonexistent.jpg", 4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_jpeg(b"\xff\xd8")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gas.load_image_1080p("/nonexistent.jpg")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.run("/nonexistent", skip_matching=True, resize=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        visualize_prompts.run("/nonexistent", "/nonexistent")
     # the CPU is taken only when asked for
     out = rasterize(t["means"], t["quats"], t["scales"], t["opacities"], t["features"],
                     cam.viewmat, cam.K, 32, 16, device="cpu")

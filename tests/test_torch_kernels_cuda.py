@@ -1,8 +1,11 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(K1-K8, P1-P2, and J1 on the JPEG fixtures of tests/data/torch_jpeg).
 
 Marked `cuda`: each test skips, with its reason, where no CUDA device is
 present. On a machine with a card: python -m pytest tests/test_torch_kernels_cuda.py -q
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import torch
 
 from gags_torch.probes import slab_probe, vpu_probe
 from gags_torch.splat import kernels
+from gags_torch.utils import jpeg
 from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext, rasterize
 from gags_torch.utils.synthetic import make_camera, make_scene
 from owner_cases import OWNER_CASES, owner_offsets
@@ -612,3 +616,24 @@ def test_slab_chain_matches_plain(dev, dtype, slab_rows):
     assert torch.equal(slab_probe.slab_chain(x, slab_rows), slab_probe.slab_chain_plain(x))
     odd = vpu_probe.probe_input((37, 13), dtype, dev)
     assert torch.equal(slab_probe.slab_chain(odd, slab_rows), slab_probe.slab_chain_plain(odd))
+
+
+_JPEG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg")
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(_JPEG_DATA) if f.endswith(".jpg")))
+def test_jpeg_decode_matches_plain_and_pil(dev, name):
+    """J1 on every committed fixture: the host entropy decoder's
+    coefficients equal the Python decoder's; the kernels' pixels equal the
+    plain version's and PIL's stored pixels, and a second launch's."""
+    with open(os.path.join(_JPEG_DATA, name), "rb") as f:
+        jf = jpeg.parse_jpeg(f.read(), name)
+    coef = jpeg.entropy_decode_host(jf)
+    assert np.array_equal(coef, jpeg.entropy_decode(jf))
+    got = jpeg.jpeg_pixels(torch.from_numpy(coef).to(dev), jf.layout())
+    want = jpeg.jpeg_pixels_plain(torch.from_numpy(coef), jf.layout())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    with np.load(os.path.join(_JPEG_DATA, "pixels.npz")) as d:
+        assert np.array_equal(got.cpu().numpy(), d[name])
+    assert torch.equal(got, jpeg.jpeg_pixels(torch.from_numpy(coef).to(dev), jf.layout()))

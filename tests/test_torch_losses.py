@@ -292,3 +292,13 @@ def test_region_losses_group_equal_jax_axis_name(region_group):
     want_l1, want_rv = fn(jnp.asarray(lmap), jnp.asarray(feat), jnp.asarray(seg))
     np.testing.assert_allclose(float(region_group[0]["l1"]), float(want_l1), rtol=1e-5)
     np.testing.assert_allclose(float(region_group[0]["rv"]), float(want_rv), rtol=1e-5)
+
+
+def test_l2_and_cosine_loss_match_jax():
+    rng = np.random.default_rng(12)
+    a, b = rng.normal(size=(2, 6, 8, 5)).astype(np.float32)
+    b[0, 0] = 0.0  # a zero vector: the 1e-8 floor of the denominator
+    _close(tl.l2(torch.as_tensor(a), torch.as_tensor(b)), jl.l2(jnp.asarray(a), jnp.asarray(b)),
+           rtol=1e-6)
+    _close(tl.cosine_loss(torch.as_tensor(a), torch.as_tensor(b)),
+           jl.cosine_loss(jnp.asarray(a), jnp.asarray(b)), rtol=1e-6)

@@ -127,3 +127,27 @@ def test_metrics_cli_runs_without_pil(tmp_path):
     assert set(results["ours_3"]) == {"PSNR", "SSIM"}
     summary, _ = metrics_cli.evaluate_dir(os.path.join(model, "test", "ours_3"), device="cpu")
     assert summary == results["ours_3"]
+
+
+def test_metrics_cli_reads_jpeg_ground_truth_as_jax_does(tmp_path):
+    """JPEG images (datasets ship their ground truth so): PSNR and SSIM of
+    the port's CLI equal the JAX package's evaluate_dir, which reads
+    through PIL."""
+    from PIL import Image
+
+    from gags_tpu.cli.metrics import evaluate_dir
+
+    model = str(tmp_path / "model")
+    _write_tree(model, np.random.default_rng(2), size=24)
+    method = os.path.join(model, "test", "ours_3")
+    for sub in ("gt", "renders"):
+        for name in os.listdir(os.path.join(method, sub)):
+            png = os.path.join(method, sub, name)
+            Image.open(png).save(png[:-4] + ".jpg", quality=85)
+            os.remove(png)
+    summary, per_view = metrics_cli.evaluate_dir(method, device="cpu")
+    jsum, jview = evaluate_dir(method)
+    for key in ("PSNR", "SSIM"):
+        assert list(per_view[key]) == list(jview[key]) == ["00000.jpg", "00001.jpg", "00002.jpg"]
+        np.testing.assert_allclose(list(per_view[key].values()), list(jview[key].values()),
+                                   rtol=1e-5, err_msg=key)

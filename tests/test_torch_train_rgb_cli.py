@@ -2,7 +2,9 @@
 images with: read_png against PIL for every colour type and filter type;
 the CLI end to end on a tiny COLMAP fixture with PNG images and an SfM
 seed cloud, its PLY snapshot read back by both packages and distilled by
-the GAD CLI."""
+the GAD CLI; the same fixture with JPEG images at -r 2: the images the
+port loads equal the JAX CLI's PIL loading (BICUBIC), and two steps on
+them equal JAX's (tests/test_torch_rgb_train.py's tolerance)."""
 
 import os
 import struct
@@ -14,7 +16,13 @@ import pytest
 import torch
 from PIL import Image
 
+from gags_tpu.rgb import train as jrgb
+from gags_tpu.scene.dataset import camera_from_info as jcamera_from_info
+from gags_tpu.scene.dataset import detect_and_load as jdetect_and_load
 from gags_tpu.scene.gaussian_data import GaussianScene as JScene
+from gags_torch.models.weights import load_jax_rgb_state
+from gags_torch.rgb import train as trgb
+from gags_torch.scene import colmap as cm
 from gags_torch.cli.train_gad import main as train_gad_main
 from gags_torch.cli.train_rgb import RunConfig, main, run
 from gags_torch.rgb.train import RgbConfig
@@ -26,6 +34,7 @@ from gags_torch.utils.image import encode_png, load_rgb, read_png
 from gags_torch.utils.synthetic import make_scene
 
 sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_rgb_train import JCFG, TCFG, XYZ_LR, _jscene, _raw_scene  # noqa: E402
 from test_torch_train_cli import build_fixture  # noqa: E402
 
 PNG_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
@@ -105,20 +114,20 @@ def test_read_png_of_pil_files(tmp_path, mode, hw):
         assert 4 in _png_filters(p)
     want = np.asarray(Image.open(p))
     np.testing.assert_array_equal(read_png(str(p)).reshape(want.shape), want)
-    np.testing.assert_array_equal(load_rgb(str(p), hw[1], hw[0]),
+    np.testing.assert_array_equal(load_rgb(str(p), hw[1], hw[0], "cpu"),
                                   np.asarray(Image.open(p).convert("RGB")))
 
 
 def test_load_rgb_resizes_only_with_pil(tmp_path, monkeypatch):
+    """load_rgb's resize is PIL's BICUBIC, with PIL or without it."""
     p = tmp_path / "a.png"
     px = np.random.default_rng(0).integers(0, 256, size=(10, 12, 3), dtype=np.uint8)
     Image.fromarray(px).save(p)
     want = np.asarray(Image.open(p).convert("RGB").resize((6, 5)))
-    np.testing.assert_array_equal(load_rgb(str(p), 6, 5), want)
+    np.testing.assert_array_equal(load_rgb(str(p), 6, 5, "cpu"), want)
     monkeypatch.setitem(sys.modules, "PIL", None)
-    np.testing.assert_array_equal(load_rgb(str(p), 12, 10), px)  # the camera's size: no PIL
-    with pytest.raises(ValueError, match=r"a\.png.*\(12, 10\).*\(6, 5\)"):
-        load_rgb(str(p), 6, 5)
+    np.testing.assert_array_equal(load_rgb(str(p), 12, 10, "cpu"), px)  # the camera's size
+    np.testing.assert_array_equal(load_rgb(str(p), 6, 5, "cpu"), want)
 
 
 def _rgb_fixture(root, n_cams=4):
@@ -186,3 +195,65 @@ def test_train_rgb_defaults_to_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["-s", str(tmp_path), "-m", str(tmp_path / "m")])
+
+
+def _jpeg_scene(root, n_cams=3):
+    """_rgb_fixture's scene with its images saved as JPEG by PIL (quality
+    90, 4:2:0) under .jpg names."""
+    _rgb_fixture(root, n_cams=n_cams)
+    path = os.path.join(root, "sparse", "0", "images.bin")
+    imgs = cm.read_images_binary(path)
+    for k, im in imgs.items():
+        png = os.path.join(root, "images", im.name)
+        name = im.name.replace(".png", ".jpg")
+        Image.open(png).convert("RGB").save(os.path.join(root, "images", name), quality=90)
+        os.remove(png)
+        imgs[k] = im._replace(name=name)
+    cm.write_images_binary(path, imgs)
+
+
+def test_train_rgb_jpeg_scene_matches_jax(tmp_path):
+    root, model = str(tmp_path / "scene"), str(tmp_path / "model")
+    _jpeg_scene(root)
+    want = {}
+    for ci in jdetect_and_load(root, foundation_model="none").train_cameras:
+        cam = jcamera_from_info(ci, 2)  # the JAX CLI's loading at -r 2
+        img = Image.open(ci.image_path).convert("RGB").resize((cam.width, cam.height))
+        want[ci.name] = (cam, np.asarray(img))
+    for ci in detect_and_load(root, foundation_model="none").train_cameras:
+        cam = camera_from_info(ci, 2)
+        jcam, px = want[ci.name]
+        assert (cam.width, cam.height) == (jcam.width, jcam.height) == (16, 8)
+        got = load_rgb(ci.image_path, cam.width, cam.height, "cpu")
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), px)
+    # two steps from one carried state on camera 0's loaded image, each
+    # package its own loading
+    name = sorted(want)[0]
+    jcam, px = want[name]
+    w, h = jcam.width, jcam.height
+    st0 = jrgb.create_rgb_state(_jscene(_raw_scene(1)), JCFG)
+    step_j = jrgb.make_rgb_step(JCFG, w, h, spatial_scale=1.0)
+    batch_j = dict(viewmat=jcam.viewmat, K=jcam.K, image=px.astype(np.float32) / 255.0)
+    losses_j, st = [], st0
+    for _ in range(2):
+        st, m = step_j(st, batch_j, np.float32(XYZ_LR), 3)
+        losses_j.append(float(m["loss"]))
+    ci = next(c for c in detect_and_load(root, foundation_model="none").train_cameras
+              if c.name == name)
+    cam = camera_from_info(ci, 2)
+    image = load_rgb(ci.image_path, w, h, "cpu").to(torch.float32) / 255.0
+    state = load_jax_rgb_state(st0, device="cpu")
+    step_t = trgb.make_rgb_step(TCFG, w, h, spatial_scale=1.0)
+    losses_t = []
+    for _ in range(2):
+        state, m = step_t(state, dict(viewmat=cam.viewmat, K=cam.K, image=image), XYZ_LR, 3)
+        losses_t.append(float(m["loss"]))
+    np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
+    np.testing.assert_allclose(state.means.numpy(), np.asarray(st.means), atol=1e-6, rtol=1e-5)
+    # and the CLI trains on the JPEG scene
+    seen = []
+    run(RunConfig(source_path=root, model_path=model, resolution=2, iterations=3,
+                  save_iterations="", device="cpu"),
+        on_step=lambda it, st_, m_: m_ is not None and seen.append(float(m_["loss"])))
+    assert len(seen) == 3 and np.all(np.isfinite(seen))

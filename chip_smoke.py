@@ -198,12 +198,18 @@ Phases, each of which fails the run:
  15. the probes' kernels P1 vpu_chain and P2 slab_chain (the TPU probes
      scripts/vpu_probe.py and scripts/slab_probe.py): their entry points
      (vpu_probe.main, slab_probe.main) with the launch counts set to 0
-     just before and read just after; P1 at the TPU block (512x256, reps
-     1) and at the rate shape (8192x512, reps 64), P2 at every slab, in
-     float32 and bfloat16, each against its plain version (bit for bit;
-     P1 in float32 within 1 ulp) and bit-identical on a second launch,
-     with device time per call (torch.profiler), CUDA-events time, the
-     plain version's times and the bound;
+     just before and read just after; registers and spills of both
+     libraries; P1 and P2 on all 65,536 bf16 bit patterns, bit for bit
+     (NaNs as bits); P1 at the TPU block (512x256, reps 1) and at the
+     rate shape (8192x512, reps 64), P2 at every slab and slab 1 (with its
+     launch geometry: at least 132 blocks) and at slab None with 10x the
+     reps, in float32 and bfloat16, each against its plain version (bit
+     for bit; P1 in float32 within 1 ulp) and bit-identical on a second
+     launch; each P1 shape and each distinct P2 launch timed: device time
+     per call (torch.profiler), CUDA-events time, the plain version's
+     times, the published-peak bound and the kernel's own-instruction
+     bound (its rep loop's instructions and MUFUs from cuobjdump -sass at
+     the card's maximum SM clock);
  16. multi-rank training and rendering (gags_torch.parallel) in phase 7's
      temporary directory, after 9d, two ranks sharing the card over gloo
      (every figure labelled so; none is a speed-up): (a)
@@ -238,6 +244,7 @@ Phases, each of which fails the run:
 from __future__ import annotations
 
 import base64
+import collections
 import dataclasses
 import gzip
 import json
@@ -260,6 +267,10 @@ WIDTH, HEIGHT = 1280, 720
 N_GAUSSIANS = 250_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PROFILE_RUNS = 5  # device_ms's profiled runs at most before it gives up
+# device_ms's runs by calling function: accepted, short of records, the least share of a
+# name's records kept, refused by reason
+PROFILE_TALLY = collections.defaultdict(lambda: collections.Counter({"least kept": 1.0}))
 ATOL, RTOL = 2e-5, 1e-4
 FLIP_FRACTION = 1e-4  # NUMERICS.md: isolated threshold flips, <= 0.01%
 FLIP_MEAN = 1e-5
@@ -306,34 +317,51 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, floor_ms: float = 0.0) -> float:
     """Device time per call of fn: the sum of its kernels' device time
     (torch.profiler), where back-to-back launches timed by events measure
     the host's launch rate instead (kernels of a few microseconds behind a
-    Python wrapper)."""
+    Python wrapper). Every call launches the same kernels and copies, so a
+    name's records number a multiple of `iters`; the profiler on the H100
+    loses some, more as the process ages (19 of 20 early in the smoke,
+    6 of 20 by phase 12, the same in five runs of five), so a name's mean
+    time per record stands in for its missing ones, and the shortfall is
+    tallied by calling function in PROFILE_TALLY. A profiled run with no
+    device record, or reading below `floor_ms` (the least time the work
+    can take), is refused and fn profiled again, up to PROFILE_RUNS runs
+    in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    caller = sys._getframe(1).f_code.co_name
+    tally = PROFILE_TALLY[caller]
     fn()
     torch.cuda.synchronize()
-    # the profiler may record no device event of a run at all (it did once
-    # on the H100, for K3 at C = 8): such a run is profiled again
-    for _ in range(3):
+    refused = []
+    for _ in range(PROFILE_RUNS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        # each kernel's time per launch times its launches per call: the
-        # profiler loses records (on the H100 it kept 19 of 20 launches of
-        # a call's last kernel in every run, and once about half of them),
-        # so a sum over the run divided by the calls reads low
-        busy = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.count)
-        if busy > 0:
-            return busy / 1e3
-        print("# torch.profiler recorded no device time: profiling again", flush=True)
-    fail("torch.profiler recorded no device time in three runs")
+        busy, kept = 0.0, 1.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.count:
+                continue
+            n = -(-e.count // iters) * iters  # the records fn's calls made
+            kept = min(kept, e.count / n)
+            busy += e.self_device_time_total / e.count * n
+        ms = busy / iters / 1e3
+        why = ("no device record" if ms <= 0 else
+               "below its floor" if ms < floor_ms else None)
+        if why is None:
+            tally["runs"] += 1
+            tally["short of records"] += kept < 1
+            tally["least kept"] = min(tally["least kept"], kept)
+            return ms
+        tally[f"refused, {why}"] += 1
+        refused.append(f"{why} ({ms:.6f} ms, floor {floor_ms:.6f})")
+        print(f"# device_ms ({caller}): run refused, {refused[-1]}", flush=True)
+    fail(f"device_ms ({caller}): all {PROFILE_RUNS} profiled runs refused: {refused}")
 
 
 def flip_tolerant_compare(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
@@ -3483,8 +3511,16 @@ def jpeg_phase(root: str, model: str, dev: torch.device, gpu: str) -> dict:
 
 
 # phase 15: the two TPU probes' kernels (P1 vpu_chain, P2 slab_chain)
-PROBE_OPS = 18  # operations an element and application, in either chain (each mul, add,
-# sub, min, neg, exp2, log1p, compare or select one)
+PROBE_OPS = 18  # operations an element and application in either chain, each mul, add, sub,
+# min, neg, exp2, log1p, compare or select one, at the published float32 rate: the bound_ms
+# column. The own-instruction bound (probe_issue_bound) counts the compiled instructions
+# instead: it rates how well the compiled loop is scheduled, not the design.
+ISSUE_LANES = 128  # thread-instructions a clock an SM: 4 schedulers, a warp instruction each
+MUFU_LANES = 16  # MUFU (EX2, LG2, RCP) results a clock an SM
+STEADY_REPS_FACTOR = 10  # P2 also at 10x its REPS, the launch amortised
+_SASS_INST = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRA = re.compile(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
 
 
 def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -3493,13 +3529,151 @@ def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((a - b).abs().max())
 
 
-def probe_entry(fn, plain, x: torch.Tensor, reps: int, what: str, exact: bool) -> dict:
-    """One probe shape: the kernel against its plain version (bit for bit,
-    or within 1 ulp where `exact` is False) and against a second launch
-    (bit-identical), with the kernel's and the plain version's device time
-    per call (torch.profiler) and CUDA-events time, and the bound: each
-    input read once and each output written once at 3.35 TB/s, or
-    PROBE_OPS operations an element and application at 67 TFLOP/s."""
+def sm_clock_mhz() -> tuple:
+    """(current, maximum) SM clock of card 0 in MHz, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    vals = out.stdout.strip().splitlines()[0].split(",")
+    cur = float(vals[0])
+    try:
+        return cur, float(vals[1])
+    except ValueError:  # no maximum reported: the current clock stands in
+        return cur, cur
+
+
+def _sass_functions(lib_path) -> dict:
+    """{mangled name: [(address, opcode, text), ...]} from cuobjdump -sass,
+    with each .L_x label's address."""
+    from gags_torch import _kernels
+
+    exe = os.path.join(os.path.dirname(_kernels.nvcc_path()), "cuobjdump")
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name], labels[name], pending = [], {}, []
+            continue
+        if name is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INST.search(line)
+        if m:
+            addr, body = int(m.group(1), 16), m.group(2).strip()
+            for lab in pending:
+                labels[name][lab] = addr
+            pending = []
+            toks = body.split()
+            pred = toks[0].startswith("@")
+            op = toks[1] if pred else toks[0]
+            funcs[name].append((addr, op, body, pred))
+    out = {}
+    for name, insts in funcs.items():
+        resolved = []
+        for addr, op, body, pred in insts:
+            tgt = None
+            b = _SASS_BRA.search(body) if op.startswith("BRA") else None
+            if b:
+                t = b.group(1)
+                tgt = int(t, 16) if t.startswith("0x") else labels[name].get(t)
+            always = not pred or body.startswith("@PT ")
+            resolved.append((addr, op, tgt, always))
+        out[name] = resolved
+    return out
+
+
+def _rep_loop(insts: list) -> dict:
+    """The innermost loop holding MUFU instructions with the most of them
+    (the rep loop): its instructions and MUFUs on the shortest and on the
+    longest path from its head to its back branch (forward branches inside
+    it are taken or not)."""
+    loops = [(tgt, addr) for addr, op, tgt, _ in insts
+             if op.startswith("BRA") and tgt is not None and tgt <= addr]
+
+    def mufus(lo, hi):
+        return sum(1 for a, op, _, _ in insts if lo <= a <= hi and op.startswith("MUFU"))
+
+    inner = [(lo, hi) for lo, hi in loops if mufus(lo, hi)
+             and not any((lo, hi) != (l2, h2) and lo <= l2 and h2 <= hi and mufus(l2, h2)
+                         for l2, h2 in loops)]
+    lo, hi = max(inner, key=lambda r: (mufus(*r), r[1] - r[0]))
+    body = [i for i in insts if lo <= i[0] <= hi]
+    index = {a: k for k, (a, _, _, _) in enumerate(body)}
+    inf = float("inf")
+    best = [(inf, 0, -inf, 0)] * (len(body) + 1)  # (min insts, its mufu, max insts, its mufu)
+    best[0] = (0, 0, 0, 0)
+    for k, (a, op, tgt, always) in enumerate(body):
+        if best[k][0] == inf:
+            continue
+        mu = int(op.startswith("MUFU"))
+        cur = (best[k][0] + 1, best[k][1] + mu, best[k][2] + 1, best[k][3] + mu)
+        nexts = []
+        if k == len(body) - 1:
+            nexts = [len(body)]
+        else:
+            if not (op.startswith("BRA") and always) and op != "EXIT":
+                nexts.append(k + 1)
+            if op.startswith("BRA") and tgt is not None and tgt > a and tgt in index:
+                nexts.append(index[tgt])
+        for n in nexts:
+            b = best[n]
+            lo_ = cur[:2] if cur[0] < b[0] else b[:2]
+            hi_ = cur[2:] if cur[2] > b[2] else b[2:]
+            best[n] = (*lo_, *hi_)
+    if any(op.startswith("CALL") for _, op, _, _ in body):
+        fail(f"the rep loop at {hex(lo)} calls a subroutine: its instructions go uncounted")
+    mn, mn_mufu, mx, mx_mufu = best[len(body)]
+    return dict(loop=[hex(lo), hex(hi)], min_insts=mn, min_mufu=mn_mufu, max_insts=mx,
+                max_mufu=mx_mufu,
+                forward_branches=sum(1 for _, op, _, _ in body[:-1] if op.startswith("BRA")))
+
+
+def probe_sass(source, lanes_of) -> dict:
+    """Per kernel of `source`'s library: its rep loop (_rep_loop) and the
+    instructions and MUFUs an element and application on the loop's
+    shortest path, given lanes_of(mangled name) = (chains a thread carries
+    in the loop, elements a chain)."""
+    from gags_torch import _kernels
+
+    out = {}
+    for name, insts in _sass_functions(_kernels._lib_path(source)).items():
+        if "_kernel" not in name:
+            continue
+        r = _rep_loop(insts)
+        lanes, per = lanes_of(name)
+        r.update(lanes=lanes, elems_per_chain=per,
+                 insts_per_elem_app=r["min_insts"] / (lanes * per),
+                 mufu_per_elem_app=r["min_mufu"] / (lanes * per))
+        out[re.search(r"([a-z][a-z_]*_kernel)", name).group(1)
+            + "".join(f"<{a}>" for a in re.findall(r"L[ib](\d+)E", name))] = r
+    return out
+
+
+def probe_issue_bound(elems: int, reps: int, sass: dict, sms: int, mhz: float) -> dict:
+    """The kernel's own-instruction bound: the least time the chain's
+    compiled instructions take on `sms` SMs at `mhz`, every instruction an
+    issue slot (ISSUE_LANES a clock an SM), every MUFU a slot of that pipe
+    (MUFU_LANES a clock an SM). Extra instructions raise it, so it rates
+    the scheduling of the compiled loop, not the design."""
+    issue = sass["insts_per_elem_app"] / ISSUE_LANES
+    mufu = sass["mufu_per_elem_app"] / MUFU_LANES
+    cycles = max(issue, mufu) * elems * reps / sms
+    return dict(issue_bound_ms=cycles / (mhz * 1e6) * 1e3,
+                issue_bound_by="issue" if issue >= mufu else "mufu",
+                sass_insts_per_elem_app=sass["insts_per_elem_app"],
+                sass_mufu_per_elem_app=sass["mufu_per_elem_app"])
+
+
+def probe_check(fn, plain, what: str, exact: bool) -> dict:
+    """One probe launch against its plain version (bit for bit, or within
+    1 ulp where `exact` is False) and against a second launch
+    (bit-identical); fails the smoke otherwise."""
     got, again, want = fn(), fn(), plain()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
@@ -3507,25 +3681,93 @@ def probe_entry(fn, plain, x: torch.Tensor, reps: int, what: str, exact: bool) -
     ulps = _ulps(got, want)
     if ulps > (0 if exact else 1) or not torch.isfinite(got.float()).all():
         fail(f"{what}: {ulps} ulps from its plain version")
+    return dict(max_abs_err=float((got.float() - want.float()).abs().max()), ulps=ulps,
+                bit_identical=True)
+
+
+def probe_entry(fn, plain, x: torch.Tensor, reps: int, what: str, exact: bool,
+                issue: dict) -> dict:
+    """One probe shape, checked by probe_check, with the kernel's and the
+    plain version's device time per call (torch.profiler; a run reading
+    below the kernel's own-instruction bound is refused) and CUDA-events
+    time, the published-peak bound (each input read once and each output
+    written once at 3.35 TB/s, or PROBE_OPS operations an element and
+    application at 67 TFLOP/s) and the own-instruction bound `issue`
+    (probe_issue_bound)."""
+    check = probe_check(fn, plain, what, exact)
     elems = x.numel()
     r = with_bound(dict(
         shape=list(x.shape), dtype=str(x.dtype).split(".")[-1], reps=reps,
-        ms=device_ms(fn), events_ms=cuda_ms(fn, 50), plain_ms=device_ms(plain, iters=5),
-        plain_events_ms=cuda_ms(plain, 5, warmup=1),
+        ms=device_ms(fn, floor_ms=issue["issue_bound_ms"]), events_ms=cuda_ms(fn, 50),
+        plain_ms=device_ms(plain, iters=5), plain_events_ms=cuda_ms(plain, 5, warmup=1),
         bytes_ms=2 * elems * x.element_size() / HBM_BYTES_PER_S * 1e3,
-        ops_ms=PROBE_OPS * elems * reps / FP32_OPS_PER_S * 1e3,
-        max_abs_err=float((got.float() - want.float()).abs().max()), ulps=ulps,
-        bit_identical=True))
+        ops_ms=PROBE_OPS * elems * reps / FP32_OPS_PER_S * 1e3, **check, **issue))
     r["element_chains_per_s"] = elems * reps / (r["ms"] * 1e-3)
+    r["of_issue_bound"] = r["issue_bound_ms"] / r["ms"]
     print(f"# {what}: {r}", flush=True)
     return r
 
 
-def probes_phase(dev: torch.device, gpu: str) -> list:
+def bf16_patterns(dev: torch.device) -> torch.Tensor:
+    """Every bf16 bit pattern once, as a (512, 128) block."""
+    bits = torch.arange(65536, dtype=torch.int32)
+    return ((bits + 32768) % 65536 - 32768).to(torch.int16).view(torch.bfloat16).reshape(
+        512, 128).to(dev)
+
+
+def _pattern_classes(x: torch.Tensor, where: torch.Tensor) -> dict:
+    """Where the x patterns at `where` lie: counts by class, the binary
+    exponent range of the normal ones and a few patterns in hex."""
+    xs = x.cpu().float()[where.cpu()]
+    bits = x.cpu().view(torch.int16)[where.cpu()].int() & 0xFFFF
+    sub = (xs != 0) & (xs.abs() < 2.0 ** -126)
+    normal = torch.isfinite(xs) & (xs != 0) & ~sub
+    exps = torch.frexp(xs[normal])[1] - 1 if normal.any() else torch.zeros(0)
+    return dict(n=int(where.sum()), nan=int(torch.isnan(xs).sum()),
+                inf=int(torch.isinf(xs).sum()), zero=int((xs == 0).sum()),
+                subnormal=int(sub.sum()), normal=int(normal.sum()),
+                negative=int((bits >= 0x8000).sum()),
+                normal_exponents=[int(exps.min()), int(exps.max())] if normal.any() else None,
+                examples=[f"0x{int(b):04x}" for b in bits[:6]])
+
+
+def probe_patterns(dev: torch.device, sms: int) -> dict:
+    """P1 (reps 1 and 2) and P2 (one slab of each launch geometry) on all
+    65,536 bf16 patterns fed as x, compared with their plain versions as
+    bits (NaNs included); the phase fails where any pattern differs."""
+    from gags_torch.probes import slab_probe, vpu_probe
+
+    x = bf16_patterns(dev)
+    cases = {f"P1 reps={r}": (lambda r=r: vpu_probe.vpu_chain(x, r),
+                              lambda r=r: vpu_probe.vpu_chain_plain(x, r)) for r in (1, 2)}
+    by_geometry = {}
+    for slab in slab_probe.SLABS + (1,):
+        by_geometry.setdefault(slab_probe.launch_geometry(*x.shape, slab, True, sms), slab)
+    for slab in by_geometry.values():
+        cases[f"P2 slab={slab}"] = (lambda s=slab: slab_probe.slab_chain(x, s),
+                                    lambda: slab_probe.slab_chain_plain(x))
+    report = {}
+    for k, (fn, plain) in cases.items():
+        got, want = fn().view(torch.int16), plain().view(torch.int16)
+        report[k] = _pattern_classes(x, got != want)
+    print(f"# 65,536 bf16 patterns: differing patterns "
+          f"{ {k: v['n'] for k, v in report.items()} }", flush=True)
+    for k, v in report.items():
+        if v["n"]:
+            fail(f"{k} on the 65,536 bf16 patterns: {v['n']} differ from the plain version "
+                 f"({v})")
+    return report
+
+
+def probes_phase(dev: torch.device, gpu: str, logs: dict) -> list:
     """Phase 15: the probes' entry points (vpu_probe.main, slab_probe.main,
     the counted path), then P1 at the TPU block (reps 1) and at the rate
-    shape (RATE_SHAPE x RATE_REPS), P2 at every slab, both types, each
-    checked and timed by probe_entry. Returns the kernels-line entries."""
+    shape (RATE_SHAPE x RATE_REPS), both types, each checked and timed by
+    probe_entry beside its published-peak and own-instruction bounds; P2
+    at every slab, both types, checked by probe_check and timed once per
+    launch geometry, and at slab None with STEADY_REPS_FACTOR x REPS; both
+    on the 65,536 bf16 patterns (probe_patterns); registers and spills
+    from the build logs. Returns the kernels-line entries."""
     from gags_torch import probes
     from gags_torch.probes import slab_probe, vpu_probe
 
@@ -3538,49 +3780,110 @@ def probes_phase(dev: torch.device, gpu: str) -> list:
     for name, n in launches.items():
         if n <= 0:
             fail(f"{name} was not launched by its probe's entry point")
+    regs = {stem: ptxas_summary(logs[stem]) for stem in ("vpu_chain", "slab_chain")}
+    for stem, lines in regs.items():
+        for line in lines:
+            print(f"# {stem} build: {line}", flush=True)
+    sass = {**probe_sass(probes.VPU_CHAIN_SRC, lambda n: (4, 2 if "bfloat" in n else 1)),
+            **probe_sass(probes.SLAB_CHAIN_SRC,
+                         lambda n: (int(re.search(r"Li(\d+)E", n).group(1)),
+                                    2 if "Lb1E" in n else 1))}
+    for k, v in sass.items():
+        print(f"# SASS {k}: {v}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz_now, mhz = sm_clock_mhz()
+    print(f"# SM clock {mhz_now:.0f} MHz now, {mhz:.0f} MHz at most (the own-instruction "
+          f"bounds' clock); {sms} SMs ({gpu})", flush=True)
+    patterns = probe_patterns(dev, sms)
     p1 = {}
     shapes = (((vpu_probe.R, vpu_probe.C), 1), (vpu_probe.RATE_SHAPE, vpu_probe.RATE_REPS))
     for shape, reps in shapes:
         for dtype in vpu_probe.DTYPES:
             x = vpu_probe.probe_input(shape, dtype, dev)
-            label = f"{str(dtype).split('.')[-1]} {shape[0]}x{shape[1]} reps={reps}"
+            name = str(dtype).split(".")[-1]
+            label = f"{name} {shape[0]}x{shape[1]} reps={reps}"
+            kern = sass["vpu_chain_bfloat_kernel" if name == "bfloat16"
+                        else "vpu_chain_float_kernel"]
             p1[label] = probe_entry(lambda: vpu_probe.vpu_chain(x, reps),
                                     lambda: vpu_probe.vpu_chain_plain(x, reps), x, reps,
-                                    f"P1 vpu_chain {label}", exact=dtype == torch.bfloat16)
-    p2 = {}
+                                    f"P1 vpu_chain {label}", exact=dtype == torch.bfloat16,
+                                    issue=probe_issue_bound(x.numel(), reps, kern, sms, mhz))
+
+    timed = {}  # (launch geometry, reps) -> the label that timed it
+
+    def p2_entry(x, slab, reps):
+        """P2 at one slab and reps with its launch: checked, and timed
+        through probe_entry at the first slab of each launch geometry."""
+        bf16 = x.dtype == torch.bfloat16
+        label = f"{str(x.dtype).split('.')[-1]} slab={slab}" + (
+            f" reps={reps}" if reps != slab_probe.REPS else "")
+        geo = slab_probe.launch_geometry(slab_probe.P, slab_probe.G, slab, bf16, sms)
+        print(f"# P2 {label}: launch {geo._asdict()}", flush=True)
+        if geo.blocks < min(sms, slab_probe.P):
+            fail(f"P2 {label}: {geo.blocks} blocks on {sms} SMs")
+        what = f"P2 slab_chain {label}"
+        fn = lambda: slab_probe.slab_chain(x, slab, reps)  # noqa: E731
+        # the plain version takes the whole block at once: every slab's output
+        plain = lambda: slab_probe.slab_chain_plain(x, None, reps)  # noqa: E731
+        if (geo, reps) in timed:
+            r = {**probe_check(fn, plain, what, exact=True), "same_launch_as": timed[geo, reps]}
+            print(f"# {what}: {r}", flush=True)
+        else:
+            timed[geo, reps] = label
+            kern = sass[f"slab_chain_kernel<{int(bf16)}><{geo.lanes}>"]
+            r = probe_entry(fn, plain, x, reps, what, exact=True,
+                            issue=probe_issue_bound(x.numel(), reps, kern, sms, mhz))
+        return label, {**r, "launch": geo._asdict()}
+
+    p2, steady = {}, {}
     for dtype in vpu_probe.DTYPES:
         x = vpu_probe.probe_input((slab_probe.P, slab_probe.G), dtype, dev)
-        for slab in slab_probe.SLABS:
-            label = f"{str(dtype).split('.')[-1]} slab={slab}"
-            p2[label] = probe_entry(lambda: slab_probe.slab_chain(x, slab),
-                                    lambda: slab_probe.slab_chain_plain(x), x, slab_probe.REPS,
-                                    f"P2 slab_chain {label}", exact=True)
+        p2.update(p2_entry(x, slab, slab_probe.REPS) for slab in slab_probe.SLABS + (1,))
+        # the same launch carrying ten times the work: the rate once the
+        # launch and the blocks' ramp are amortised
+        steady.update([p2_entry(x, None, STEADY_REPS_FACTOR * slab_probe.REPS)])
     rate = {d: p1[f"{d} {vpu_probe.RATE_SHAPE[0]}x{vpu_probe.RATE_SHAPE[1]} "
                   f"reps={vpu_probe.RATE_REPS}"]["element_chains_per_s"]
             for d in ("float32", "bfloat16")}
     print(f"# P1 at the rate shape: bf16 / f32 element-chain rate "
           f"{rate['bfloat16'] / rate['float32']:.3f} ({gpu})", flush=True)
     keep = ("ms", "events_ms", "plain_ms", "plain_events_ms", "bound_ms", "bound_by",
-            "max_abs_err", "ulps", "element_chains_per_s")
+            "issue_bound_ms", "issue_bound_by", "of_issue_bound", "sass_insts_per_elem_app",
+            "sass_mufu_per_elem_app", "max_abs_err", "ulps", "element_chains_per_s",
+            "same_launch_as")
     head1, head2 = p1[f"float32 {vpu_probe.R}x{vpu_probe.C} reps=1"], p2["float32 slab=None"]
+    head_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "issue_bound_ms", "issue_bound_by",
+                 "events_ms")
     timing = ("ms, plain_ms: device time per call (torch.profiler); events_ms, plain_events_ms: "
-              "back-to-back calls between CUDA events")
+              "back-to-back calls between CUDA events; issue_bound_ms: the kernel's "
+              "own-instruction bound, its compiled rep loop's SASS instructions at "
+              f"{ISSUE_LANES} a clock an SM and MUFUs at {MUFU_LANES}, {sms} SMs at {mhz:.0f} "
+              "MHz: how well that loop is scheduled, not how far the design is from the card "
+              "(bound_ms rates the design)")
+    patterns_line = {k: r["n"] for k, r in patterns.items()}
     return [
         {"name": "vpu_chain", "id": "P1", "route": "cuda",
          "source": "gags_torch/probes/csrc/vpu_chain.cu", "replaces": "scripts/vpu_probe.py:36",
          "launches": launches["vpu_chain"], "check": "bit for bit (bf16), <= 1 ulp (f32)",
          "max_abs_err": max(r["max_abs_err"] for r in p1.values()),
-         **{k: head1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "events_ms")},
+         **{k: head1[k] for k in head_keys},
          "library_ms": None, "timing": timing,
          "bf16_over_f32_rate": rate["bfloat16"] / rate["float32"], "main_s": vpu_main,
-         "by_shape": {k: {kk: v[kk] for kk in keep} for k, v in p1.items()}},
+         "registers": regs["vpu_chain"], "bf16_patterns_differing": patterns_line,
+         "sass": {k: v for k, v in sass.items() if k.startswith("vpu")},
+         "by_shape": {k: {kk: v[kk] for kk in keep if kk in v} for k, v in p1.items()}},
         {"name": "slab_chain", "id": "P2", "route": "cuda",
          "source": "gags_torch/probes/csrc/slab_chain.cu", "replaces": "scripts/slab_probe.py:71",
          "launches": launches["slab_chain"], "check": "bit for bit",
          "max_abs_err": max(r["max_abs_err"] for r in p2.values()),
-         **{k: head2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "events_ms")},
+         **{k: head2[k] for k in head_keys},
          "library_ms": None, "timing": timing, "main_s": slab_main,
-         "by_slab": {k: {kk: v[kk] for kk in keep} for k, v in p2.items()}},
+         "registers": regs["slab_chain"], "bf16_patterns_differing": patterns_line,
+         "sass": {k: v for k, v in sass.items() if k.startswith("slab")},
+         "by_slab": {k: {**{kk: v[kk] for kk in keep if kk in v}, "launch": v["launch"]}
+                     for k, v in p2.items()},
+         "steady": {k: {**{kk: v[kk] for kk in keep if kk in v}, "launch": v["launch"]}
+                    for k, v in steady.items()}},
     ]
 
 
@@ -3820,7 +4123,7 @@ def main() -> int:
     k1["by_width"] = {"GAD C=16": {k: k1[k] for k in k1_rgb}, "RGB C=3": k1_rgb}
 
     # -- 15. the probes' kernels P1 and P2 -------------------------------------------
-    probe_kernels = probes_phase(dev, gpu)
+    probe_kernels = probes_phase(dev, gpu, logs)
 
     # -- 17. report --------------------------------------------------------------
     f16 = k5["features"]
@@ -3904,6 +4207,8 @@ def main() -> int:
           f"{json.dumps({k: v for k, v in multi.items() if k != 'distributed_launches'})}")
     print(f"# query report: {json.dumps(query)}")
     print(f"# warm-start report: {json.dumps(warm)}")
+    print(f"# device_ms profiled runs, by caller: "
+          f"{json.dumps({k: dict(v) for k, v in PROFILE_TALLY.items()})}", flush=True)
     print(f"# smoke run time: {time.perf_counter() - t_start:.1f} s (builds included)")
     print(json.dumps(kernels_line))
     print(f"gpu: {gpu}")

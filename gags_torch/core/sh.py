@@ -1,4 +1,4 @@
-"""Spherical-harmonics colour up to degree 3 (port of gags_tpu.core.sh)."""
+"""Spherical-harmonics colour up to degree 4 (port of gags_tpu.core.sh)."""
 
 from __future__ import annotations
 
@@ -22,13 +22,24 @@ SH_C3 = (
     1.445305721320277,
     -0.5900435899266435,
 )
+SH_C4 = (
+    2.5033429417967046,
+    -1.7701307697799304,
+    0.9461746957575601,
+    -0.6690465435572892,
+    0.10578554691520431,
+    -0.6690465435572892,
+    0.47308734787878004,
+    -1.7701307697799304,
+    0.6258357354491761,
+)
 
 
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH colour at directions `dirs` (..., 3); `sh` is (..., C, K) with
     K >= (deg+1)^2. Returns (..., C), before the +0.5 shift."""
-    if not 0 <= deg <= 3:
-        raise ValueError(f"SH degree {deg} outside [0, 3]")
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree {deg} outside [0, 4]")
     if sh.shape[-1] < (deg + 1) ** 2:
         raise ValueError("too few SH coefficients for the degree")
     result = SH_C0 * sh[..., 0]
@@ -64,6 +75,21 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
                     + SH_C3[5] * z * (xx - yy) * sh[..., 14]
                     + SH_C3[6] * x * (xx - 3 * yy) * sh[..., 15]
                 )
+                if deg > 3:
+                    result = (
+                        result
+                        + SH_C4[0] * xy * (xx - yy) * sh[..., 16]
+                        + SH_C4[1] * yz * (3 * xx - yy) * sh[..., 17]
+                        + SH_C4[2] * xy * (7 * zz - 1) * sh[..., 18]
+                        + SH_C4[3] * yz * (7 * zz - 3) * sh[..., 19]
+                        + SH_C4[4] * (zz * (35 * zz - 30) + 3) * sh[..., 20]
+                        + SH_C4[5] * xz * (7 * zz - 3) * sh[..., 21]
+                        + SH_C4[6] * (xx - yy) * (7 * zz - 1) * sh[..., 22]
+                        + SH_C4[7] * xz * (xx - 3 * yy) * sh[..., 23]
+                        + SH_C4[8]
+                        * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))
+                        * sh[..., 24]
+                    )
     return result
 
 

@@ -15,14 +15,29 @@
 // once to the working type (probe_common.cuh). The TPU probe runs the
 // chain on the whole block at once or in a loop over row slabs of 256,
 // 64, 32 or 8 rows, to see whether Mosaic streams every op through VMEM.
-// Here a slab is the rows of one thread block (no slab: one block for the
-// whole array, as the TPU's single grid-less call), so the slab sets how
-// many SMs share the work. The output is the same for every slab.
+// The TPU's grid-less call ran on its whole core; here every slab spreads
+// the block over all SMs. A thread block owns a band of whole rows and
+// loops over it in passes of at most `slab` rows: a pass's rows are loaded,
+// carried through all REPS applications in registers and stored before
+// the next pass's rows are loaded, so the slab bounds a block's register
+// working set. The launch geometry (blocks, threads, rows a band, rows a
+// pass, chains a thread) is computed by the wrapper
+// (slab_probe.launch_geometry). The output is the same for every slab.
+// At the probe's (1024, 128) on 132 SMs a band is one row, so every slab
+// launches the same grid: the card's register files hold the whole block
+// at once, and the TPU's question of how many rows to carry has no
+// counterpart at that shape.
 //
-// Design: a thread takes one 16-byte access (4 float32 or 8 bf16
-// elements) per round of a loop over its block's rows, and keeps the
-// chain's REPS applications in registers; a slab whose elements are not a
-// whole number of accesses takes one element a thread.
+// Bound: the instruction issue rate (log1pf is a software routine of ~25
+// instructions, each exp2 one MUFU.EX2 here: probe_common.cuh's exp2_mufu,
+// exact for these arguments; ~1,000 dependent instructions an element over
+// the 24 applications), not the bytes. The block's 131,072 elements give
+// each of the card's 528 schedulers ~250 chains, too few to hide the
+// chain's latency fully. Design: one float32 element or one bf16x2 pair a
+// chain, kLanes chains a thread (two float32 chains or one pair at least)
+// carried through the rep loop interleaved, so independent chains hide
+// each other's latency; many small blocks keep the SMs' shares within one
+// block of even.
 
 #include "probe_common.cuh"
 
@@ -33,11 +48,13 @@ using namespace probe;
 __device__ __forceinline__ float chain(float x) {
   const float lt = 0.0f;
   const float s2 = __fadd_rn(__fmul_rn(x, 0.5f), 1.0f);
-  float alpha = fminf(0.999f, exp2f(-s2));
+  // below 2^-126 exp2 falls under the 1/255 floor whatever its bits
+  float alpha = min1(0.999f, exp2_mufu(-s2));
   alpha = alpha >= static_cast<float>(1.0 / 255.0) ? alpha : 0.0f;
   const float l1m = log1pf(-alpha);
   const float cum = __fadd_rn(l1m, lt);
-  const float w = cum >= -8.0f ? __fmul_rn(alpha, exp2f(__fsub_rn(cum, l1m))) : 0.0f;
+  // cum - l1m is 0: l1m is finite (alpha is 0 or in [1/255, 0.999])
+  const float w = cum >= -8.0f ? __fmul_rn(alpha, exp2_mufu(__fsub_rn(cum, l1m))) : 0.0f;
   return __fadd_rn(w, __fmul_rn(s2, 1e-3f));
 }
 
@@ -45,58 +62,101 @@ __device__ __forceinline__ bf2 chain(bf2 x) {
   const float floor_f = static_cast<float>(1.0 / 255.0);
   const bf2 lt = 0u;
   const bf2 s2 = add2(mul2(x, splat2(0.5f)), splat2(1.0f));
-  bf2 alpha = min2(splat2(0.999f), exp2_2(neg2(s2)));
+  bf2 alpha = min2(splat2(0.999f), exp2_mufu2(neg2(s2)));  // as in the float32 chain
   alpha = keep2(alpha, lo(alpha) >= floor_f, hi(alpha) >= floor_f);
   const bf2 l1m = pack2(log1pf(-lo(alpha)), log1pf(-hi(alpha)));
   const bf2 cum = add2(l1m, lt);
-  const bf2 w = keep2(mul2(alpha, exp2_2(sub2(cum, l1m))), lo(cum) >= -8.0f, hi(cum) >= -8.0f);
+  const bf2 w =
+      keep2(mul2(alpha, exp2_mufu2(sub2(cum, l1m))), lo(cum) >= -8.0f, hi(cum) >= -8.0f);
   return add2(w, mul2(s2, splat2(1e-3f)));
 }
 
-template <typename T>
-__device__ __forceinline__ T chain_reps(T v, int reps) {
-#pragma unroll 1
-  for (int r = 0; r < reps; ++r) v = chain(v);
-  return v;
-}
+// One chain's value: a float32 element, or a bf16 pair (elements e, e + 1
+// of the row-major block; an element at or past `end` reads 0 and is not
+// stored).
+template <bool kBf16>
+struct Elem;
 
-template <bool kVector>
-__global__ void slab_chain_float_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                      long long slab_elems, long long n, int reps) {
-  const long long e0 = static_cast<long long>(blockIdx.x) * slab_elems;
-  const long long e1 = e0 + slab_elems < n ? e0 + slab_elems : n;
-  if (kVector) {
-    for (long long e = e0 + 4LL * threadIdx.x; e < e1; e += 4LL * blockDim.x) {
-      float4 a = *reinterpret_cast<const float4*>(x + e);
-      a.x = chain_reps(a.x, reps);
-      a.y = chain_reps(a.y, reps);
-      a.z = chain_reps(a.z, reps);
-      a.w = chain_reps(a.w, reps);
-      *reinterpret_cast<float4*>(out + e) = a;
+template <>
+struct Elem<false> {
+  typedef float T;
+  static constexpr int kPer = 1;
+  static __device__ __forceinline__ T load(const void* x, long long e, long long) {
+    return static_cast<const float*>(x)[e];
+  }
+  static __device__ __forceinline__ void store(void* out, long long e, long long, T v) {
+    static_cast<float*>(out)[e] = v;
+  }
+};
+
+template <>
+struct Elem<true> {
+  typedef bf2 T;
+  static constexpr int kPer = 2;
+  static __device__ __forceinline__ T load(const void* x, long long e, long long end) {
+    const uint16_t* p = static_cast<const uint16_t*>(x);
+    return static_cast<bf2>(p[e]) | (e + 1 < end ? static_cast<bf2>(p[e + 1]) << 16 : 0u);
+  }
+  static __device__ __forceinline__ void store(void* out, long long e, long long end, T v) {
+    uint16_t* p = static_cast<uint16_t*>(out);
+    p[e] = static_cast<uint16_t>(v & 0xffffu);
+    if (e + 1 < end) p[e + 1] = static_cast<uint16_t>(v >> 16);
+  }
+};
+
+// Block b: rows [b * band_rows, (b + 1) * band_rows) in passes of pass_rows;
+// in a pass, thread t takes chains t, t + threads, ... (kLanes at a time).
+template <bool kBf16, int kLanes>
+__global__ void __launch_bounds__(1024)
+slab_chain_kernel(const void* __restrict__ x, void* __restrict__ out, int rows, int cols,
+                  int band_rows, int pass_rows, int reps) {
+  typedef Elem<kBf16> E;
+  const int r0 = blockIdx.x * band_rows;
+  const int r1 = min(rows, r0 + band_rows);
+  const long long step = static_cast<long long>(E::kPer) * blockDim.x;
+  for (int p0 = r0; p0 < r1; p0 += pass_rows) {
+    const long long begin = static_cast<long long>(p0) * cols;
+    const long long end = static_cast<long long>(min(r1, p0 + pass_rows)) * cols;
+    for (long long e0 = begin + E::kPer * threadIdx.x; e0 < end; e0 += kLanes * step) {
+      typename E::T v[kLanes];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) {
+        const long long e = e0 + l * step;
+        v[l] = e < end ? E::load(x, e, end) : typename E::T(0);
+      }
+#pragma unroll 1
+      for (int r = 0; r < reps; ++r) {
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l) v[l] = chain(v[l]);
+      }
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) {
+        const long long e = e0 + l * step;
+        if (e < end) E::store(out, e, end, v[l]);
+      }
     }
-  } else {
-    for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x) out[e] = chain_reps(x[e], reps);
   }
 }
 
-template <bool kVector>
-__global__ void slab_chain_bfloat_kernel(const uint16_t* __restrict__ x, uint16_t* __restrict__ out,
-                                       long long slab_elems, long long n, int reps) {
-  const long long e0 = static_cast<long long>(blockIdx.x) * slab_elems;
-  const long long e1 = e0 + slab_elems < n ? e0 + slab_elems : n;
-  if (kVector) {
-    for (long long e = e0 + 8LL * threadIdx.x; e < e1; e += 8LL * blockDim.x) {
-      uint4 a = *reinterpret_cast<const uint4*>(x + e);
-      a.x = chain_reps(a.x, reps);
-      a.y = chain_reps(a.y, reps);
-      a.z = chain_reps(a.z, reps);
-      a.w = chain_reps(a.w, reps);
-      *reinterpret_cast<uint4*>(out + e) = a;
-    }
+// The chains a thread carries: 2 or 4 float32 elements (two at least), 1, 2
+// or 4 bf16 pairs (slab_probe.launch_geometry); only these are built.
+void launch(const void* x, void* out, int rows, int cols, int blocks, int threads, int band_rows,
+            int pass_rows, int lanes, int reps, bool bf16, cudaStream_t s) {
+  if (bf16 && lanes >= 4) {
+    slab_chain_kernel<true, 4><<<blocks, threads, 0, s>>>(x, out, rows, cols, band_rows,
+                                                          pass_rows, reps);
+  } else if (bf16 && lanes == 2) {
+    slab_chain_kernel<true, 2><<<blocks, threads, 0, s>>>(x, out, rows, cols, band_rows,
+                                                          pass_rows, reps);
+  } else if (bf16) {
+    slab_chain_kernel<true, 1><<<blocks, threads, 0, s>>>(x, out, rows, cols, band_rows,
+                                                          pass_rows, reps);
+  } else if (lanes >= 4) {
+    slab_chain_kernel<false, 4><<<blocks, threads, 0, s>>>(x, out, rows, cols, band_rows,
+                                                           pass_rows, reps);
   } else {
-    for (long long e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-      out[e] = static_cast<uint16_t>(chain_reps(static_cast<bf2>(x[e]), reps) & 0xffffu);
-    }
+    slab_chain_kernel<false, 2><<<blocks, threads, 0, s>>>(x, out, rows, cols, band_rows,
+                                                           pass_rows, reps);
   }
 }
 
@@ -109,36 +169,16 @@ const char* gags_error_string(int err) {
 }
 
 // x, out: (rows, cols) float32 (bf16 = 0) or bfloat16 (bf16 = 1) on the
-// device, on 16 bytes; slab_rows rows a thread block (slab_rows >= rows:
-// one block); reps >= 1 applications of the chain. Launches on `stream`
-// and returns the first CUDA error of the launch.
-int gags_slab_chain(const void* x, void* out, int rows, int cols, int slab_rows, int reps,
-                    int bf16, void* stream) {
+// device; `blocks` blocks of `threads` threads, block b taking rows
+// [b * band_rows, (b + 1) * band_rows) in passes of pass_rows rows, lanes
+// chains a thread at a time (2 or 4 for float32, 1, 2 or 4 for bfloat16); reps >= 1 applications of the
+// chain. Launches on `stream` and returns the first CUDA error of the
+// launch.
+int gags_slab_chain(const void* x, void* out, int rows, int cols, int blocks, int threads,
+                    int band_rows, int pass_rows, int lanes, int reps, int bf16, void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  if (slab_rows <= 0 || slab_rows > rows) slab_rows = rows;
-  const long long n = static_cast<long long>(rows) * cols;
-  const long long slab_elems = static_cast<long long>(slab_rows) * cols;
-  const int blocks = (rows + slab_rows - 1) / slab_rows;
-  const int per_access = bf16 ? 8 : 4;
-  const bool vector = slab_elems % per_access == 0;
-  const long long accesses = vector ? slab_elems / per_access : slab_elems;
-  // one access a thread where the slab has at most 1024; the loop takes the rest
-  const int threads =
-      static_cast<int>(accesses >= 1024 ? 1024 : ((accesses + 31) / 32) * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint16_t* xb = static_cast<const uint16_t*>(x);
-  uint16_t* ob = static_cast<uint16_t*>(out);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
-  if (bf16 && vector) {
-    slab_chain_bfloat_kernel<true><<<blocks, threads, 0, s>>>(xb, ob, slab_elems, n, reps);
-  } else if (bf16) {
-    slab_chain_bfloat_kernel<false><<<blocks, threads, 0, s>>>(xb, ob, slab_elems, n, reps);
-  } else if (vector) {
-    slab_chain_float_kernel<true><<<blocks, threads, 0, s>>>(xf, of, slab_elems, n, reps);
-  } else {
-    slab_chain_float_kernel<false><<<blocks, threads, 0, s>>>(xf, of, slab_elems, n, reps);
-  }
+  launch(x, out, rows, cols, blocks, threads, band_rows, pass_rows, lanes, reps, bf16 != 0,
+         static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

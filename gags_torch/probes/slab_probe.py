@@ -2,11 +2,15 @@
 probe scripts/slab_probe.py.
 
 `slab_chain` runs the blend alpha chain (exp2, min, log1p, two selects)
-REPS times as one CUDA kernel (csrc/slab_chain.cu) whose thread blocks
-each take `slab` rows (None: one block for the whole array, the TPU's
-single grid-less call); `slab_chain_plain` runs the same chain as eager
-PyTorch ops, ~18 launches an application, one slab after another. Every
-slab gives the same output, bit for bit.
+REPS times as one CUDA kernel (csrc/slab_chain.cu). The TPU's grid-less
+call ran on its whole core, so on the card every slab spreads the block
+over all SMs (`launch_geometry`); the slab keeps the meaning the TPU probe
+gave it, the rows carried through all REPS applications before the next
+rows are loaded, here at most the rows of one thread block's pass
+(None: no limit). At the TPU block (1024, 128) on 132 SMs a block owns
+one row, so every slab launches the same grid. `slab_chain_plain` runs
+the same chain as eager PyTorch ops, ~18 launches an application, one
+slab after another. Every slab gives the same output, bit for bit.
 
   python -m gags_torch.probes.slab_probe [--device cuda]
 """
@@ -15,19 +19,65 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from gags_torch import _kernels, resolve_device
 from gags_torch.probes import SLAB_CHAIN_SRC, launch_counts
 from gags_torch.probes.vpu_probe import DTYPES, probe_input
-from gags_torch.splat.kernels import _aligned16, _dispatch, _ptr, _stream
+from gags_torch.splat.kernels import _dispatch, _ptr, _stream
 from gags_torch.utils.timing import device_time_drain
 
 P, G = 1024, 128  # the TPU probe's block
 REPS = 24  # chain applications a call
 SLABS = (None, 256, 64, 32, 8)
+H100_SMS = 132
+BLOCKS_PER_SM = 8  # blocks a SM at most, so that the SMs' shares differ by one block
+MAX_THREADS = 1024
+MIN_ELEMS = 2  # elements a thread holds at least: two float32 chains or one bf16x2 pair
+MAX_LANES = 4  # chains a thread carries interleaved
+
+
+class Geometry(NamedTuple):
+    blocks: int
+    threads: int
+    band_rows: int  # rows a block owns
+    pass_rows: int  # rows a block carries through the REPS applications at once
+    lanes: int  # chains a thread carries interleaved
+    elems_per_chain: int  # 1 (float32) or 2 (a bf16x2 pair)
+
+    @property
+    def elems_per_thread(self) -> int:
+        """Elements a thread holds at once (its register working set)."""
+        return self.lanes * self.elems_per_chain
+
+
+def launch_geometry(rows: int, cols: int, slab: Optional[int], bf16: bool,
+                    sms: int = H100_SMS) -> Geometry:
+    """P2's launch on a card of `sms` SMs. A block owns a band of whole
+    rows and takes at least a warp of threads of MIN_ELEMS elements, so
+    at most `possible` = min(rows, ceil(rows * cols / (32 * MIN_ELEMS)))
+    blocks can have work; the bands are cut for min(possible,
+    BLOCKS_PER_SM * sms) blocks or more, so every SM has a block whenever
+    `possible` allows it. A block carries min(slab, band) rows at a time;
+    its threads hold that pass's chains, MIN_ELEMS elements a thread, up
+    to MAX_LANES chains interleaved a thread when it has more than
+    MAX_THREADS."""
+    per = 2 if bf16 else 1
+    possible = min(rows, -(-rows * cols // (32 * MIN_ELEMS)))
+    band = max(1, rows // min(possible, BLOCKS_PER_SM * sms))
+    pass_rows = band if slab is None else max(1, min(slab, band))
+    chains = -(-pass_rows * cols // per)
+    lanes = MIN_ELEMS // per
+    while chains > MAX_THREADS * lanes and lanes < MAX_LANES:
+        lanes *= 2
+    threads = min(MAX_THREADS, 32 * -(-chains // (32 * lanes)))
+    return Geometry(-(-rows // band), threads, band, pass_rows, lanes, per)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def chain_plain(x: torch.Tensor, lt: torch.Tensor) -> torch.Tensor:
@@ -65,8 +115,9 @@ def slab_chain_plain(x: torch.Tensor, slab: Optional[int] = None,
 
 def slab_chain(x: torch.Tensor, slab: Optional[int] = None, reps: int = REPS) -> torch.Tensor:
     """The chain over a (rows, cols) float32 or bfloat16 block, `reps`
-    times, `slab` rows a thread block: the plain version on the CPU, the
-    CUDA kernel on the card."""
+    times, at most `slab` rows carried at once: the plain version on the
+    CPU, the CUDA kernel on the card (launched as `launch_geometry`
+    says)."""
     if not _dispatch(x):
         return slab_chain_plain(x, slab, reps)
     if x.dtype not in DTYPES or x.dim() != 2:
@@ -74,16 +125,19 @@ def slab_chain(x: torch.Tensor, slab: Optional[int] = None, reps: int = REPS) ->
                         f"{tuple(x.shape)}")
     if reps < 1 or (slab is not None and slab < 1):
         raise ValueError("slab_chain: reps >= 1 and slab >= 1 (or None)")
-    x = _aligned16(x.contiguous())
+    x = x.contiguous()
     out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
     lib = _kernels.load(SLAB_CHAIN_SRC)
     fn = lib.gags_slab_chain
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rows, cols = x.shape
-    err = fn(_ptr(x), _ptr(out), rows, cols, slab or rows, reps,
-             int(x.dtype == torch.bfloat16), _stream(x))
+    bf16 = x.dtype == torch.bfloat16
+    g = launch_geometry(rows, cols, slab, bf16, _sm_count(x.device))
+    err = fn(_ptr(x), _ptr(out), rows, cols, g.blocks, g.threads, g.band_rows, g.pass_rows,
+             g.lanes, reps, int(bf16), _stream(x))
     _kernels.check(lib, err, "slab_chain")
     launch_counts["slab_chain"] += 1
     return out

@@ -52,16 +52,28 @@ def test_campos_matches(seed):
     assert ct.fovy == pytest.approx(cj.fovy, rel=1e-12)
 
 
-@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
 def test_sh_colors_match(deg):
     rng = np.random.default_rng(10 + deg)
     n = 64
-    sh = (0.5 * rng.normal(size=(n, 16, 3))).astype(np.float32)
+    k = 25 if deg == 4 else 16  # degree 4 reads coefficients 16-24
+    sh = (0.5 * rng.normal(size=(n, k, 3))).astype(np.float32)
     means = rng.uniform(-2, 2, size=(n, 3)).astype(np.float32)
     campos = np.array([0.1, -0.2, -4.0], np.float32)
     want = jsh.sh_colors(deg, jnp.asarray(sh), jnp.asarray(means), jnp.asarray(campos))
     got = tsh.sh_colors(deg, torch.as_tensor(sh), torch.as_tensor(means), torch.as_tensor(campos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_sh_degree_outside_range_refused():
+    sh = np.zeros((4, 3, 36), np.float32)
+    dirs = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (4, 1))
+    with pytest.raises(AssertionError):
+        jsh.eval_sh(5, jnp.asarray(sh), jnp.asarray(dirs))
+    with pytest.raises(ValueError, match="outside"):
+        tsh.eval_sh(5, torch.as_tensor(sh), torch.as_tensor(dirs))
+    with pytest.raises(ValueError, match="too few"):
+        tsh.eval_sh(4, torch.as_tensor(sh[..., :16]), torch.as_tensor(dirs))
 
 
 def test_rgb_sh_roundtrip_and_inverse_sigmoid():

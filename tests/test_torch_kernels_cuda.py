@@ -607,7 +607,7 @@ def test_vpu_chain_matches_plain(dev, dtype, reps):
     assert torch.equal(got, vpu_probe.vpu_chain(x, reps))
 
 
-@pytest.mark.parametrize("slab_rows", slab_probe.SLABS + (3,), ids=lambda s: f"slab{s}")
+@pytest.mark.parametrize("slab_rows", slab_probe.SLABS + (1, 3), ids=lambda s: f"slab{s}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_slab_chain_matches_plain(dev, dtype, slab_rows):
     """P2 bit for bit for every slab, and on a block of no whole 16-byte
@@ -616,6 +616,33 @@ def test_slab_chain_matches_plain(dev, dtype, slab_rows):
     assert torch.equal(slab_probe.slab_chain(x, slab_rows), slab_probe.slab_chain_plain(x))
     odd = vpu_probe.probe_input((37, 13), dtype, dev)
     assert torch.equal(slab_probe.slab_chain(odd, slab_rows), slab_probe.slab_chain_plain(odd))
+
+
+def _bf16_patterns(dev):
+    """Every bf16 bit pattern once, as a (512, 128) block."""
+    bits = torch.arange(65536, dtype=torch.int32)
+    return ((bits + 32768) % 65536 - 32768).to(torch.int16).view(torch.bfloat16).reshape(
+        512, 128).to(dev)
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_vpu_chain_all_bf16_patterns(dev, reps):
+    """P1 on all 65,536 bf16 patterns fed as x (NaN, inf, subnormals
+    included) equals its plain version as bits."""
+    x = _bf16_patterns(dev)
+    got = vpu_probe.vpu_chain(x, reps).view(torch.int16)
+    want = vpu_probe.vpu_chain_plain(x, reps).view(torch.int16)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("slab_rows", slab_probe.SLABS + (1,), ids=lambda s: f"slab{s}")
+def test_slab_chain_all_bf16_patterns(dev, slab_rows):
+    """P2 on all 65,536 bf16 patterns fed as x equals its plain version as
+    bits, at every slab."""
+    x = _bf16_patterns(dev)
+    got = slab_probe.slab_chain(x, slab_rows).view(torch.int16)
+    want = slab_probe.slab_chain_plain(x).view(torch.int16)
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 _JPEG_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg")

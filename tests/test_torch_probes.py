@@ -6,7 +6,9 @@ tests/test_torch_kernels_cuda.py).
 The TPU scripts time a TPU when imported, so `make` and the shape
 constants are read out of scripts/vpu_probe.py and scripts/slab_probe.py
 with `ast` and run with `pl.pallas_call(..., interpret=True)`; the
-scripts themselves are not imported or changed.
+scripts themselves are not imported or changed. P2's launch geometry
+(`slab_probe.launch_geometry`) is checked here too, against a Python walk
+of the kernel's loops.
 """
 
 import ast
@@ -143,3 +145,48 @@ def test_probe_mains_on_cpu_print_rates(capsys, monkeypatch):
     assert len(r1) == 4 and len(r2) == 4 and all(v > 0 for v in {**r1, **r2}.values())
     assert "Gelem/s" in out and "ps/pair-chain" in out
     assert probes.launch_counts == before  # the plain versions launch nothing
+
+
+def _kernel_coverage(g, rows, cols):
+    """How many times slab_chain_kernel's loops (csrc/slab_chain.cu) visit
+    each element of a (rows, cols) block under launch geometry `g`."""
+    seen = np.zeros(rows * cols, np.int64)
+    per, step = g.elems_per_chain, g.elems_per_chain * g.threads
+    threads = np.arange(g.threads)
+    for b in range(g.blocks):
+        r0, r1 = b * g.band_rows, min(rows, (b + 1) * g.band_rows)
+        for p0 in range(r0, r1, g.pass_rows):
+            begin, end = p0 * cols, min(r1, p0 + g.pass_rows) * cols
+            e0 = begin + per * threads
+            while (e0 < end).any():
+                for lane in range(g.lanes):
+                    for k in range(per):
+                        e = e0 + lane * step + k
+                        np.add.at(seen, e[(e0 + lane * step < end) & (e < end)], 1)
+                e0 = e0 + g.lanes * step
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(1024, 128), (37, 13), (8192, 512)], ids=str)
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("slab_rows", slab_probe.SLABS + (1, 3), ids=lambda s: f"slab{s}")
+def test_slab_launch_geometry_fills_the_card(shape, bf16, slab_rows):
+    """P2's launch on 132 SMs: at least min(132, possible) blocks, where a
+    block takes whole rows and at least a warp of threads of two elements;
+    at most `slab` rows carried at once; every element visited exactly
+    once."""
+    rows, cols = shape
+    g = slab_probe.launch_geometry(rows, cols, slab_rows, bf16, sms=132)
+    per = 2 if bf16 else 1
+    possible = min(rows, -(-rows * cols // (32 * 2)))
+    assert g.blocks >= min(132, possible)
+    # the (dtype, lanes) pairs csrc/slab_chain.cu builds
+    assert g.elems_per_chain == per and g.lanes in ((1, 2, 4) if bf16 else (2, 4))
+    assert g.elems_per_thread >= 2
+    assert g.threads % 32 == 0 and 32 <= g.threads <= 1024
+    assert g.pass_rows <= g.band_rows and (slab_rows is None or g.pass_rows <= slab_rows)
+    assert (g.blocks - 1) * g.band_rows < rows <= g.blocks * g.band_rows
+    # a pass's chains fit the block's threads at once
+    assert g.threads * g.lanes * per >= g.pass_rows * cols or g.threads == 1024
+    seen = _kernel_coverage(g, rows, cols)
+    assert seen.min() == 1 and seen.max() == 1

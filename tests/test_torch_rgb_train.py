@@ -67,19 +67,31 @@ def _np_state(st):
 # --------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def jax_two_steps():
+def _sh4_scene(seed):
+    """`_raw_scene` with degree-4 colours: coefficients 16-24 drawn from a
+    seeded N(0, 0.1), so that the step reads and trains them."""
+    a = _raw_scene(seed)
+    extra = 0.1 * np.random.default_rng(seed).normal(size=(N, 9, 3))
+    a["sh"] = np.concatenate([a["sh"], extra.astype(np.float32)], axis=1)
+    return a
+
+
+def _jax_steps(start, jcfg, sh_degree):
     gt = _gt_image(7)
-    start = _raw_scene(1)
-    st0 = jrgb.create_rgb_state(_jscene(start), JCFG)
+    st0 = jrgb.create_rgb_state(_jscene(start), jcfg)
     cam = make_camera(W, H)
     batch = dict(viewmat=jnp.asarray(cam.viewmat.numpy()), K=jnp.asarray(cam.K.numpy()),
                  image=jnp.asarray(gt))
-    step = jrgb.make_rgb_step(JCFG, W, H, spatial_scale=1.0)
-    st1, m1 = step(st0, batch, jnp.float32(XYZ_LR), 3)
-    st2, m2 = step(st1, batch, jnp.float32(XYZ_LR), 3)
+    step = jrgb.make_rgb_step(jcfg, W, H, spatial_scale=1.0)
+    st1, m1 = step(st0, batch, jnp.float32(XYZ_LR), sh_degree)
+    st2, m2 = step(st1, batch, jnp.float32(XYZ_LR), sh_degree)
     return dict(st0=st0, states=[_np_state(st1), _np_state(st2)],
                 losses=[float(m1["loss"]), float(m2["loss"])], gt=gt, cam=cam, start=start)
+
+
+@pytest.fixture(scope="module")
+def jax_two_steps():
+    return _jax_steps(_raw_scene(1), JCFG, 3)
 
 
 def test_create_rgb_state_matches_jax(jax_two_steps):
@@ -95,14 +107,27 @@ def test_two_steps_match_jax(jax_two_steps):
     +-lr sign(g): an element whose gradient is rounding noise may flip
     sign in one package, so elements with |g_jax| < 1e-6 max|g_jax| are
     held to 2 lr per step, the rest to float32 rounding."""
+    _match_two_steps(jax_two_steps, TCFG, 3)
+
+
+def test_two_steps_match_jax_sh_degree_4():
+    """The same two steps at SH degree 4 (K = 25 coefficients a Gaussian,
+    16-24 non-zero), from the same carried state in both packages."""
+    jcfg = dataclasses.replace(JCFG, sh_degree=4)
+    want = _jax_steps(_sh4_scene(1), jcfg, 4)
+    assert want["states"][0]["sh"].shape[1] == 25
+    _match_two_steps(want, dataclasses.replace(TCFG, sh_degree=4), 4)
+
+
+def _match_two_steps(jax_two_steps, tcfg, sh_degree):
     cam, gt = jax_two_steps["cam"], torch.as_tensor(jax_two_steps["gt"])
     state = load_jax_rgb_state(jax_two_steps["st0"], device="cpu")
-    step = trgb.make_rgb_step(TCFG, W, H, spatial_scale=1.0)
+    step = trgb.make_rgb_step(tcfg, W, H, spatial_scale=1.0)
     batch = dict(viewmat=cam.viewmat, K=cam.K, image=gt)
     losses = []
     got = []
     for _ in range(2):
-        state, m = step(state, batch, XYZ_LR, 3)
+        state, m = step(state, batch, XYZ_LR, sh_degree)
         losses.append(float(m["loss"]))
         got.append(_np_state(state))
     np.testing.assert_allclose(losses, jax_two_steps["losses"], rtol=1e-5)
@@ -123,9 +148,9 @@ def test_two_steps_match_jax(jax_two_steps):
     assert want1["grad_accum"].max() > 0
 
     # 2. the states after each step
-    lrs = dict(means=XYZ_LR, sh_dc=TCFG.feature_lr, sh_rest=TCFG.feature_lr / 20,
-               opacities_raw=TCFG.opacity_lr, scales_raw=TCFG.scaling_lr,
-               quats=TCFG.rotation_lr)
+    lrs = dict(means=XYZ_LR, sh_dc=tcfg.feature_lr, sh_rest=tcfg.feature_lr / 20,
+               opacities_raw=tcfg.opacity_lr, scales_raw=tcfg.scaling_lr,
+               quats=tcfg.rotation_lr)
     n_noise = 0
     for i, (g_st, w_st) in enumerate(zip(got, (want1, want2))):
         assert g_st["step"] == w_st["step"] == i + 1

@@ -1,0 +1,12 @@
+"""Both GAD decoders' matrix products, forward and backward, counted from
+their widths at the render's pixels (benchmark/counts/ops.py), over the
+mean time of the steps a traced run times just before it profiles, as a
+share of the float32 peak."""
+
+from benchmark.counts.ops import PEAK_F32_FLOPS
+
+
+def read(trace):
+    if not trace.get("step_s") or not trace.get("flops_per_unit"):
+        return None
+    return 100.0 * trace["flops_per_unit"] / trace["step_s"] / PEAK_F32_FLOPS

@@ -14,6 +14,13 @@ activations and the decoder live on the device for the life of the
 server. PNGs are encoded with zlib and struct from the standard library
 (utils/image.encode_png).
 
+Traced (utils/tracing, while a torch.profiler session runs):
+`serve.request` a POST, from the body's read to the reply written;
+inside a /relevancy one, `serve.lock_wait` (acquiring the device lock),
+`serve.locked` (render, decode, relevancy, mask, the turbo heat map's
+and the mask's 8-bit pixels, readbacks), `serve.encode` (both PNGs,
+base64) and `serve.write` (JSON and the socket write).
+
 Run: python -m gags_torch.cli.serve -m <model_path> [--iteration N]
      [--autotune] [--autotune_res 1280x720]
 The model directory holds point_cloud/iteration_N/point_cloud.ply (with
@@ -47,7 +54,8 @@ from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.autotune import autotune_config, load_persisted
 from gags_torch.splat.rasterizer import RasterizeConfig
 from gags_torch.splat.render import render
-from gags_torch.utils.colormaps import apply_pca_colormap, turbo
+from gags_torch.utils import tracing
+from gags_torch.utils.colormaps import apply_pca_colormap, turbo_png_pixels
 from gags_torch.utils.image import encode_png
 
 
@@ -157,31 +165,39 @@ class SceneServer:
         pos_t = torch.as_tensor(pos, device=self.device)
         neg_t = torch.as_tensor(np.asarray(neg, np.float32), device=self.device)
         thresh = float(req.get("thresh", 0.5))
-        with self.lock:
-            self._note_resolution(cam)
-            rel = self.relevancy_map(cam, pos_t, neg_t)[0]
-            mask, vmap = heatmap_to_mask(rel, thresh)
-            mask = majority_smooth(mask).cpu().numpy()
-            vmap = vmap.cpu().numpy()
-            rel_max = float(rel.max())
-        heat = turbo(vmap)
-        return {
-            "heatmap_png": _png_b64(heat),
-            "mask_png": _png_b64(mask.astype(np.float32)[..., None].repeat(3, -1)),
-            "relevancy_max": rel_max,
-            "selected_px": int(mask.sum()),
-        }
+        with tracing.span("serve.lock_wait"):
+            self.lock.acquire()
+        try:
+            with tracing.span("serve.locked"):
+                self._note_resolution(cam)
+                rel = self.relevancy_map(cam, pos_t, neg_t)[0]
+                mask, vmap = heatmap_to_mask(rel, thresh)
+                mask = majority_smooth(mask)
+                # both images' 8-bit pixels, made on the device, in one copy
+                heat, mask = torch.stack([turbo_png_pixels(vmap),
+                                          (mask * 255)[..., None].expand(-1, -1, 3)]).cpu().numpy()
+                rel_max = float(rel.max())
+        finally:
+            self.lock.release()
+        with tracing.span("serve.encode"):
+            return {
+                "heatmap_png": _png_b64(heat),
+                "mask_png": _png_b64(mask),
+                "relevancy_max": rel_max,
+                "selected_px": int(np.count_nonzero(mask[..., 0])),
+            }
 
 
 def make_handler(server: SceneServer):
     class Handler(BaseHTTPRequestHandler):
         def _reply(self, code, payload):
-            body = json.dumps(payload).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
+            with tracing.span("serve.write"):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
 
         def do_GET(self):
             if self.path == "/health":
@@ -190,17 +206,18 @@ def make_handler(server: SceneServer):
                 self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):
-            ln = int(self.headers.get("Content-Length", 0))
-            try:
-                req = json.loads(self.rfile.read(ln) or b"{}")
-                if self.path == "/render":
-                    self._reply(200, server.render(req))
-                elif self.path == "/relevancy":
-                    self._reply(200, server.relevancy(req))
-                else:
-                    self._reply(404, {"error": "unknown path"})
-            except Exception as exc:  # surface the failure to the client
-                self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            with tracing.span("serve.request"):
+                ln = int(self.headers.get("Content-Length", 0))
+                try:
+                    req = json.loads(self.rfile.read(ln) or b"{}")
+                    if self.path == "/render":
+                        self._reply(200, server.render(req))
+                    elif self.path == "/relevancy":
+                        self._reply(200, server.relevancy(req))
+                    else:
+                        self._reply(404, {"error": "unknown path"})
+                except Exception as exc:  # surface the failure to the client
+                    self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
 
         def log_message(self, fmt, *a):  # quiet; errors go to the client
             pass

@@ -20,7 +20,12 @@ versions). `--autotune_train` times the step with and without the fused
 supervision on the device before training and trains with the faster
 (saved into the model dir's gad_cfg.json, times in train_autotune.json);
 `--profile` writes a torch.profiler Chrome trace of iterations 50-60
-under `<model>/profile/`; `--viewer_port` serves RGB frames of the frozen
+under `<model>/profile/`, which carries the step's spans (utils/tracing):
+`gad.step` a step (the batch and the train step), inside it
+`gad.batch_wait`, `gad.render`, `gad.decoders`, `gad.losses`,
+`gad.backward` and `gad.adam` (the loader thread's `gad.batch_load` is
+in `tracing.snapshot()` alone: the profiler records the training
+thread); `--viewer_port` serves RGB frames of the frozen
 geometry to a SIBR remote viewer (0 or less: off). At each save
 iteration it writes `chkpnt<N>/`, `point_cloud/iteration_N/
 point_cloud.ply` with the trained features and `decoders.pt`, which
@@ -76,6 +81,7 @@ from gags_torch.models.weights import save_decoders
 from gags_torch.scene.dataset import camera_to_json, detect_and_load
 from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig, prepare_binning, rasterize
+from gags_torch.utils import tracing
 from gags_torch.utils.colormaps import turbo
 from gags_torch.utils.config import save_config
 from gags_torch.utils.image import encode_png
@@ -391,7 +397,8 @@ def _train(ctx, rc: RunConfig, gad_cfg: GadConfig, on_step):
                 _stop_profile(prof, rc.model_path)
                 prof = None
             ew, rw = loss_weights(it, gad_cfg)
-            state, m = step_fn(state, geom, next(stream), ew, rw)
+            with tracing.span("gad.step"):
+                state, m = step_fn(state, geom, next(stream), ew, rw)
             if lead and on_step is not None:
                 on_step(it, state, m)
             if it % 10 == 0:
@@ -456,7 +463,8 @@ def main(argv=None):
     p.add_argument("--eval", dest="eval_split", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", action="store_true",
-                   help="torch.profiler Chrome trace of iterations 50-60 under <model>/profile/")
+                   help="torch.profiler Chrome trace of iterations 50-60 under "
+                        "<model>/profile/, with the gad.* spans of each step")
     p.add_argument("--viewer_port", type=int, default=6009,
                    help="SIBR remote viewer port (0 or less: off)")
     p.add_argument("--autotune_train", action="store_true",

@@ -4,7 +4,9 @@ static-shape batches, streamed to the device one step ahead.
 Each camera's supervision is padded once to a (max_masks, D) embedding
 table and a render-resolution int32 seg map; `prefetch_to_device` copies
 the next batches from pinned host memory on a side stream while the
-current step runs.
+current step runs. Traced (utils/tracing): `gad.batch_load`, the producer
+thread's copy of one batch; `gad.batch_wait`, the consumer's wait for
+one.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from gags_torch.scene.dataset import CameraInfo, camera_from_info
+from gags_torch.utils import tracing
 
 
 def _nearest_resize_np(seg: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
@@ -119,11 +122,12 @@ def prefetch_to_device(batches: Iterator[Dict], device, size: int = 2) -> Iterat
             for b in batches:
                 if stop.is_set():
                     return
-                item = _to_device(b, device, stream)
-                event = None
-                if stream is not None:
-                    event = torch.cuda.Event()
-                    event.record(stream)
+                with tracing.span("gad.batch_load"):
+                    item = _to_device(b, device, stream)
+                    event = None
+                    if stream is not None:
+                        event = torch.cuda.Event()
+                        event.record(stream)
                 q.put((item, event))
             q.put(sentinel)
         except BaseException as exc:  # surface in the consumer
@@ -133,7 +137,8 @@ def prefetch_to_device(batches: Iterator[Dict], device, size: int = 2) -> Iterat
     t.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("gad.batch_wait"):
+                item = q.get()
             if item is sentinel:
                 return
             if isinstance(item, BaseException):

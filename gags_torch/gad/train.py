@@ -11,6 +11,12 @@ plus the entropy regulariser; the Gaussian features and the feature
 decoder train through the L1 and the region-variance loss on the F-dim
 map; geometry is frozen. The schedule weights (entropy_w, regionvar_w)
 are plain floats: (0.001, 0) before `schedule_switch`, (0.002, 0.1) after.
+
+Traced (utils/tracing), each span timed by CUDA events on the stream as
+well: `gad.render`
+(the rasterizer's forward), `gad.decoders` (the scale and feature
+decoders' forwards), `gad.losses` (mixed segmentation, supervision L1,
+region losses, entropy), `gad.backward` and `gad.adam` (the three updates).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from gags_torch.gad.supervision import blend_gt_feature_map, fused_supervision_l
 from gags_torch.models.decoders import FeatureDecoder, ScaleDecoder
 from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig, rasterize, rasterize_binned
+from gags_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,14 +193,18 @@ def _supervision_losses(cfg: GadConfig, decoder, scale_decoder, feat_map, batch)
     hw = tuple(feat_map.shape[:2])
     flat_ok = cfg.fused_supervision and tuple(batch["seg_map"].shape[:2]) == hw
     px = feat_map.reshape(-1, feat_map.shape[-1]) if flat_ok else feat_map
-    scale_px = _scale_map_fn(cfg, scale_decoder, px)
-    seg_mixed = mixed_seg_map(batch["seg_map"], scale_px.reshape(hw + (3,)))
-    with _decoder_precision(cfg, px.device):
+    dev = px.device
+    with tracing.span("gad.decoders", device=dev):
+        scale_px = _scale_map_fn(cfg, scale_decoder, px)
+    with tracing.span("gad.losses", device=dev):
+        seg_mixed = mixed_seg_map(batch["seg_map"], scale_px.reshape(hw + (3,)))
+    with tracing.span("gad.decoders", device=dev), _decoder_precision(cfg, dev):
         decoded = decoder(px).float()
-    l1_pix = supervised_l1_pix(cfg, decoded, scale_px, batch)
-    l1_feature = losses.region_balanced_l1(l1_pix, seg_mixed, cfg.max_segments)
-    ent = losses.scale_entropy_loss(scale_px)
-    regvar = losses.region_variance_loss(px, seg_mixed, cfg.max_segments)
+    with tracing.span("gad.losses", device=dev):
+        l1_pix = supervised_l1_pix(cfg, decoded, scale_px, batch)
+        l1_feature = losses.region_balanced_l1(l1_pix, seg_mixed, cfg.max_segments)
+        ent = losses.scale_entropy_loss(scale_px)
+        regvar = losses.region_variance_loss(px, seg_mixed, cfg.max_segments)
     return l1_feature, ent, regvar, scale_px
 
 
@@ -215,9 +226,11 @@ def _apply(state: TrainState, total: torch.Tensor) -> None:
     opts = (state.opt_feat, state.opt_dec, state.opt_scale)
     for opt in opts:
         opt.zero_grad(set_to_none=True)
-    total.backward()
-    for opt in opts:
-        opt.step()
+    with tracing.span("gad.backward", device=state.device):
+        total.backward()
+    with tracing.span("gad.adam", device=state.device):
+        for opt in opts:
+            opt.step()
     state.step += 1
 
 
@@ -228,21 +241,22 @@ def camera_loss(state: TrainState, geom, batch, entropy_w: float, regionvar_w: f
     camera's cached binning (`make_train_step_binned`)."""
     dev = state.device
     bg = torch.zeros((cfg.feature_dim,), dtype=torch.float32, device=dev)
-    if binned:
-        feat_map, _alpha = rasterize_binned(
-            geom["means"], geom["quats"], geom["scales"], geom["opacities"],
-            state.features, batch["viewmat"], batch["K"],
-            batch["inst_gid"], batch["tile_starts"], batch["tile_counts"],
-            width, height, background=bg, config=cfg.raster,
-            order=batch["order"], red_slot=batch["red_slot"],
-            red_rank=batch["red_rank"], red_block=batch["red_block"],
-        )
-        overflow = torch.zeros((), dtype=torch.int32, device=dev)  # checked at cache build
-    else:
-        res = rasterize(geom["means"], geom["quats"], geom["scales"], geom["opacities"],
-                        state.features, batch["viewmat"], batch["K"], width, height,
-                        background=bg, config=cfg.raster, device=dev)
-        feat_map, overflow = res.image, res.overflow
+    with tracing.span("gad.render", device=dev):
+        if binned:
+            feat_map, _alpha = rasterize_binned(
+                geom["means"], geom["quats"], geom["scales"], geom["opacities"],
+                state.features, batch["viewmat"], batch["K"],
+                batch["inst_gid"], batch["tile_starts"], batch["tile_counts"],
+                width, height, background=bg, config=cfg.raster,
+                order=batch["order"], red_slot=batch["red_slot"],
+                red_rank=batch["red_rank"], red_block=batch["red_block"],
+            )
+            overflow = torch.zeros((), dtype=torch.int32, device=dev)  # checked at cache build
+        else:
+            res = rasterize(geom["means"], geom["quats"], geom["scales"], geom["opacities"],
+                            state.features, batch["viewmat"], batch["K"], width, height,
+                            background=bg, config=cfg.raster, device=dev)
+            feat_map, overflow = res.image, res.overflow
     l1_feature, ent, regvar, scale_px = _supervision_losses(
         cfg, state.decoder, state.scale_decoder, feat_map, batch)
     total = l1_feature + entropy_w * ent + regionvar_w * regvar

@@ -15,6 +15,10 @@ for slot, and a state carried over from JAX (`models.weights.
 load_jax_rgb_state`) steps like JAX's. Unlike JAX's pure functions, the
 step, `densify_step` and `reset_opacity_step` update the state's tensors
 in place and return the same state.
+
+Traced (utils/tracing): `rgb.step` a step of `make_rgb_step`, inside it
+`rgb.forward` (SH colours, rasterize, L1 + SSIM), `rgb.backward` and
+`rgb.update` (six Adam groups, the parking, the densification statistics).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from gags_torch.scene.densify import (densify_masks, reset_opacity_raw, split_me
                                       split_scales_raw)
 from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig, rasterize
+from gags_torch.utils import tracing
 from gags_torch.utils.metrics import ssim
 
 DEAD_Z = -1.0e9  # parked slots sit far behind every camera, so they are culled
@@ -203,31 +208,35 @@ def make_rgb_step(cfg: RgbConfig, width: int, height: int, spatial_scale: float)
         return (1 - lam) * l1 + lam * dssim, res.radii
 
     def step(state: RgbState, batch, xyz_lr: float, sh_degree: int) -> Tuple[RgbState, dict]:
-        leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        tap = torch.zeros((state.capacity, 2), dtype=torch.float32, device=state.means.device,
-                          requires_grad=True)
-        loss, radii = loss_fn(leaves, tap, batch, sh_degree)
-        loss.backward()
-        lrs = dict(means=xyz_lr, sh_dc=cfg.feature_lr, sh_rest=cfg.feature_lr / 20.0,
-                   opacities_raw=cfg.opacity_lr, scales_raw=cfg.scaling_lr,
-                   quats=cfg.rotation_lr)
-        for k, p in state.params.items():
-            _adam_update(p, leaves[k].grad, state.opt[k], lrs[k], state.step)
-        with torch.no_grad():
-            alive = state.alive
-            state.params["means"].copy_(_park(state.params["means"], alive))
-            # screen-space positional gradient, scaled by (W/2, H/2) before
-            # the norm as the reference does (gaussian_model.py:476-482):
-            # the 2e-4 threshold is calibrated in those units
-            g_m2d = tap.grad
-            g2d = torch.linalg.norm(torch.stack([g_m2d[:, 0] * (width * 0.5),
-                                                 g_m2d[:, 1] * (height * 0.5)], dim=-1), dim=-1)
-            vis = radii > 0
-            state.grad_accum += torch.where(vis, g2d, torch.zeros_like(g2d))
-            state.denom += vis.to(torch.float32)
-            torch.maximum(state.max_radii, radii.to(torch.float32), out=state.max_radii)
-        state.step += 1
-        return state, dict(loss=loss.detach(), n_alive=torch.sum(alive))
+        with tracing.span("rgb.step"):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
+            tap = torch.zeros((state.capacity, 2), dtype=torch.float32,
+                              device=state.means.device, requires_grad=True)
+            with tracing.span("rgb.forward"):
+                loss, radii = loss_fn(leaves, tap, batch, sh_degree)
+            with tracing.span("rgb.backward"):
+                loss.backward()
+            lrs = dict(means=xyz_lr, sh_dc=cfg.feature_lr, sh_rest=cfg.feature_lr / 20.0,
+                       opacities_raw=cfg.opacity_lr, scales_raw=cfg.scaling_lr,
+                       quats=cfg.rotation_lr)
+            with tracing.span("rgb.update"), torch.no_grad():
+                for k, p in state.params.items():
+                    _adam_update(p, leaves[k].grad, state.opt[k], lrs[k], state.step)
+                alive = state.alive
+                state.params["means"].copy_(_park(state.params["means"], alive))
+                # screen-space positional gradient, scaled by (W/2, H/2)
+                # before the norm as the reference does (gaussian_model.py:
+                # 476-482): the 2e-4 threshold is calibrated in those units
+                g_m2d = tap.grad
+                g2d = torch.linalg.norm(torch.stack([g_m2d[:, 0] * (width * 0.5),
+                                                     g_m2d[:, 1] * (height * 0.5)], dim=-1),
+                                        dim=-1)
+                vis = radii > 0
+                state.grad_accum += torch.where(vis, g2d, torch.zeros_like(g2d))
+                state.denom += vis.to(torch.float32)
+                torch.maximum(state.max_radii, radii.to(torch.float32), out=state.max_radii)
+            state.step += 1
+            return state, dict(loss=loss.detach(), n_alive=torch.sum(alive))
 
     return step
 

@@ -1,11 +1,13 @@
 """Colormaps for visual outputs (numpy; a copy of gags_tpu.utils.colormaps):
-turbo, float, depth and boolean maps, and the PCA feature visualisation."""
+turbo, float, depth and boolean maps, and the PCA feature visualisation;
+`turbo_png_pixels`, turbo's 8-bit pixels made on a tensor's device."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def turbo(x: np.ndarray) -> np.ndarray:
@@ -15,6 +17,29 @@ def turbo(x: np.ndarray) -> np.ndarray:
     g = 0.09140261 + x * (2.19418839 + x * (4.84296658 + x * (-14.18503333 + x * (4.27729857 + x * 2.82956604))))
     b = 0.10667330 + x * (12.64194608 + x * (-60.58204836 + x * (110.36276771 + x * (-89.90310912 + x * 27.34824973))))
     return np.clip(np.stack([r, g, b], -1), 0.0, 1.0)
+
+
+# turbo's coefficients a channel (r, g, b), the highest power first
+_TURBO = (
+    (59.28637943, -152.94239396, 132.13108234, -42.66032258, 4.61539260, 0.13572138),
+    (2.82956604, 4.27729857, -14.18503333, 4.84296658, 2.19418839, 0.09140261),
+    (27.34824973, -89.90310912, 110.36276771, -60.58204836, 12.64194608, 0.10667330),
+)
+
+
+def turbo_png_pixels(x: torch.Tensor) -> torch.Tensor:
+    """(...) values → (..., 3) uint8 on x's device: the pixels
+    `encode_png(turbo(x))` writes, bit for bit. Each float32 product and
+    sum is the numpy turbo's, in its order, over the three channels at
+    once, and 8-bit values are truncated as encode_png truncates."""
+    c = torch.tensor(_TURBO, dtype=torch.float32, device=x.device).T  # (6, 3)
+    x = x.to(torch.float32).clamp(0.0, 1.0)[..., None]
+    acc = x * c[0]
+    for k in range(1, 6):
+        acc = acc + c[k]
+        if k < 5:
+            acc = x * acc
+    return (acc.clamp(0.0, 1.0) * 255).to(torch.uint8)
 
 
 def apply_float_colormap(img: np.ndarray) -> np.ndarray:

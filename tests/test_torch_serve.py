@@ -25,7 +25,9 @@ from gags_tpu.splat.render import render as jrender
 from gags_torch.cli.serve import SceneServer, encode_png, load_server, make_handler
 from gags_torch.models.decoders import FeatureDecoder
 from gags_torch.models.weights import decoder_state_from_flax, save_decoders, scene_from_arrays
+from gags_torch.query.relevancy import heatmap_to_mask, majority_smooth
 from gags_torch.splat.rasterizer import RasterizeConfig
+from gags_torch.utils.colormaps import turbo
 from gags_torch.utils.synthetic import make_camera, make_scene
 
 W, H, N, FD = 32, 16, 60, 16
@@ -95,6 +97,23 @@ def _decode_png(b):
 def test_encode_png_roundtrip():
     img = np.random.default_rng(0).uniform(size=(5, 7, 3))
     np.testing.assert_array_equal(_decode_png(encode_png(img)), (img * 255).astype(np.uint8))
+
+
+def test_relevancy_reply_pixels_are_the_host_encoders():
+    raw, jdec, params, scene, srv, pos, neg = _setup()
+    cam = make_camera(W, H)
+    req = dict(viewmat=cam.viewmat.reshape(-1).tolist(), K=cam.K.reshape(-1).tolist(),
+               width=W, height=H, label="other", thresh=0.4)
+    out = srv.relevancy(req)
+    rel = srv.relevancy_map(cam, torch.as_tensor(pos[1:2]), torch.as_tensor(neg))[0]
+    mask, vmap = heatmap_to_mask(rel, 0.4)
+    mask = majority_smooth(mask).numpy()
+    heat_png = encode_png(turbo(vmap.numpy()))
+    mask_png = encode_png(mask.astype(np.float32)[..., None].repeat(3, -1))
+    assert base64.b64decode(out["heatmap_png"]) == heat_png
+    assert base64.b64decode(out["mask_png"]) == mask_png
+    assert out["selected_px"] == int(mask.sum()) > 0
+    assert out["relevancy_max"] == float(rel.max())
 
 
 def _post(url, payload):

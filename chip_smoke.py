@@ -232,11 +232,27 @@ Phases, each of which fails the run:
      sequential renders, bit for bit; each kernel's launches inside the
      ranks read around each path (the kernels line's
      distributed_launches);
+ 19. J2 project_forward / project_backward (the projection and its VJP,
+     splat/csrc/project.cu): the forward at 400k (the RGB path: extents,
+     table and tap) and 1M (the GAD path: the table alone,
+     projection.project_table_only) on a synthetic scene at 1280x720,
+     every output bit for bit the plain chain's on the card and a second
+     launch's; the backward at 400k from a seeded table gradient against
+     float64 autograd through the plain chain (relative L2 no worse than
+     float32 autograd's), zero where the table's gradient is; device time
+     (torch.profiler) and CUDA-events time of each beside the plain
+     chain's device time and the bytes bound (inputs read once, outputs
+     written once, at 3.35 TB/s); launches per path, an extra check
+     beside the counted runs of phases 4, 7 and 10: an RGB rasterize with
+     geometry gradients and its backward, a GAD rasterize_binned, a
+     serving rasterize;
  17. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
-     stage-A launches; every kernel with its phase-16 launches), P1-P2
-     and J1 (its launches in phase 18's training, GAS and convert runs),
+     stage-A launches; every kernel with its phase-16 launches), P1-P2,
+     J2 (its launches in the counted runs of phases 10, 7 and 4: RGB
+     training, GAD training, serving) and J1 (its launches in phase 18's
+     training, GAS and convert runs),
      the query and multi-rank reports, then the card's name and power
      limit, then the final {"ok": true, ...}.
 """
@@ -267,6 +283,13 @@ WIDTH, HEIGHT = 1280, 720
 N_GAUSSIANS = 250_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
+# J2: the RGB step's slots and the GAD / serving scene; about 250 float32
+# operations a Gaussian forward, and backward the same 250 (the forward's
+# branches) and 570 float64 (recomputation and chain rule), counted from
+# csrc/project.cu
+J2_RGB_N, J2_GAD_N = 400_000, 1_000_000
+J2_FWD_OPS, J2_BWD_OPS = 250, 570
 PROFILE_RUNS = 5  # device_ms's profiled runs at most before it gives up
 # device_ms's runs by calling function: accepted, short of records, the least share of a
 # name's records kept, refused by reason
@@ -651,9 +674,8 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
     from gags_torch.scene.dataset import detect_and_load
     from gags_torch.scene.gaussian_data import GaussianScene
     from gags_torch.splat import kernels
-    from gags_torch.splat.projection import project_gaussians
-    from gags_torch.splat.rasterizer import (_geom_table, order_ext, prepare_binning,
-                                             rasterize_binned)
+    from gags_torch.splat.projection import geom_table, project_gaussians
+    from gags_torch.splat.rasterizer import order_ext, prepare_binning, rasterize_binned
 
     with tempfile.TemporaryDirectory() as tmp:
         root, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
@@ -686,6 +708,9 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
                      "dense_segment_sum"):
             if launches[name] <= 0:
                 fail(f"{name} was not launched while training")
+        if launches["project_forward"] < TRAIN_STEPS:  # J2: one a step, one a camera's binning
+            fail(f"project_forward launched {launches['project_forward']} times in {TRAIN_STEPS} "
+                 f"GAD steps (at least {TRAIN_STEPS} expected)")
         losses = [float(m["loss"]) for m in metrics]
         if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
             fail(f"training losses {losses}")
@@ -742,7 +767,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             proj = project_gaussians(geo["means"], geo["quats"], geo["scales"], batch["viewmat"],
                                      batch["K"], w, h)
             perm = order_ext(b.order.long())
-            geom_p = _geom_table(proj, geo["opacities"])[perm].contiguous()
+            geom_p = geom_table(proj, geo["opacities"])[perm].contiguous()
             cols_p = torch.cat([geometry.semantic_features,
                                 torch.zeros((1, fdim), device=dev)])[perm].contiguous()
             px = feat_map.detach().reshape(-1, fdim)
@@ -896,7 +921,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
         r["check"] = "ok"
         with_bound(r)
     report[0]["train_steps"] = steps
-    return report, extra
+    return report, extra, launches
 
 
 K7_KEY_OPS = 20
@@ -915,8 +940,8 @@ def k7_phase(dev: torch.device, gpu: str) -> dict:
     bound, plain time and the unfused chain's time (K6 + gathers + key
     ops, the yardstick: no single PyTorch call computes K7)."""
     from gags_torch.splat import kernels, tiles
-    from gags_torch.splat.projection import project_gaussians
-    from gags_torch.splat.rasterizer import RasterizeConfig, _cull_rows, _geom_table, order_ext
+    from gags_torch.splat.projection import geom_table, project_gaussians
+    from gags_torch.splat.rasterizer import RasterizeConfig, _cull_rows, order_ext
     from gags_torch.utils.synthetic import make_camera, make_scene
 
     cfg = RasterizeConfig(aligned=False)
@@ -938,7 +963,7 @@ def k7_phase(dev: torch.device, gpu: str) -> dict:
             mk = tiles.expansion_slots(budget, cfg.chunk)
             shift = max(1, n.bit_length())
             cull_rows = _cull_rows(proj, t["opacities"])
-            geom = _geom_table(proj, t["opacities"])
+            geom = geom_table(proj, t["opacities"])
         bins, images = {}, {}
         for cull in (False, True):
             what = f"K7 expand_keys {label} cull {'on' if cull else 'off'}"
@@ -2580,7 +2605,8 @@ def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
         print(f"# launches during RGB training: {launches}")
         for name, least in (("blend_forward_aligned", RGB_STEPS), ("expand_gid", RGB_STEPS),
                             ("blend_backward_full", RGB_STEPS),
-                            ("sorted_segment_sum", 2 * RGB_STEPS)):
+                            ("sorted_segment_sum", 2 * RGB_STEPS),
+                            ("project_forward", RGB_STEPS), ("project_backward", RGB_STEPS)):
             if launches[name] < least:
                 fail(f"{name} launched {launches[name]} times in {RGB_STEPS} RGB steps "
                      f"(at least {least} expected)")
@@ -3887,6 +3913,179 @@ def probes_phase(dev: torch.device, gpu: str, logs: dict) -> list:
     ]
 
 
+def project_phase(dev: torch.device, gpu: str) -> dict:
+    """Phase 19 (see the module docstring). Returns J2's kernels-line
+    entry."""
+    from gags_torch.splat import kernels
+    from gags_torch.splat.projection import (geom_table, project_gaussians_plain, project_table,
+                                             project_table_only)
+    from gags_torch.splat.rasterizer import (RasterizeConfig, prepare_binning, rasterize,
+                                             rasterize_binned)
+    from gags_torch.utils.synthetic import make_camera, make_scene
+
+    cam = make_camera(WIDTH, HEIGHT, device=dev)
+    consts = dict(eps2d=0.3, near_plane=0.01, far_plane=1e10, antialiased=False)
+
+    def scene(n):
+        raw = make_scene(n, seed=19, extent=3.0)
+        return [torch.as_tensor(raw[k], device=dev)
+                for k in ("means", "quats", "scales", "opacities")]
+
+    def same(a, b):
+        if not a.is_floating_point():
+            return torch.equal(a, b)
+        return torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b, nan=7.0))
+
+    out = {}
+    # RGB: the projection (extents) and the table with a tap; GAD
+    # (rasterize_binned): the table alone
+    for label, n, rgb in (("RGB 400k", J2_RGB_N, True), ("GAD 1M", J2_GAD_N, False)):
+        m, q, s, o = scene(n)
+        extents = with_tap = rgb
+        tap = torch.zeros((n, 2), device=dev) if with_tap else None
+
+        def fwd():
+            with torch.no_grad():
+                if rgb:
+                    return project_table(m, q, s, o, cam.viewmat, cam.K, WIDTH, HEIGHT,
+                                         extents=extents, means2d_tap=tap)
+                return None, project_table_only(m, q, s, o, cam.viewmat, cam.K, WIDTH, HEIGHT)
+
+        def plain_fwd():
+            p = project_gaussians_plain(m, q, s, cam.viewmat, cam.K, WIDTH, HEIGHT,
+                                        opacities=o if extents else None)
+            return p, geom_table(p if tap is None else p._replace(means2d=p.means2d + tap), o)
+
+        (proj, table), (proj2, table2), (want, want_table) = fwd(), fwd(), plain_fwd()
+        torch.cuda.synchronize()
+        for f in want._fields if rgb else ():
+            if not (same(getattr(proj, f), getattr(want, f))
+                    and same(getattr(proj2, f), getattr(proj, f))):
+                fail(f"J2 forward {label}: {f} differs from the plain chain or a second launch")
+        if not (same(table, want_table) and same(table2, table)):
+            fail(f"J2 forward {label}: the table differs from the plain chain's")
+        # 44 B of inputs a Gaussian, the tap's 8, the projection's 40, the table's 32
+        nbytes = n * (44 + (8 + 40) * rgb) + (n + 1) * 32
+        out[f"forward {label}"] = with_bound(dict(
+            n=n, extents=extents, tap=with_tap, projection=rgb, table=True,
+            valid=int((want.radii > 0).sum()),
+            ms=device_ms(fwd), events_ms=cuda_ms(fwd, 20), plain_ms=device_ms(plain_fwd),
+            bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            ops_ms=n * J2_FWD_OPS / FP32_OPS_PER_S * 1e3))
+        del proj, table, proj2, table2, want, want_table
+
+    # the backward at the RGB size, from a seeded table gradient, rows of
+    # Gaussians off the image given none (as the blend gives them none)
+    n = J2_RGB_N
+    m, q, s, o = scene(n)
+    args = (m, q, s, o, cam.viewmat, cam.K, WIDTH, HEIGHT)
+    with torch.no_grad():
+        proj, _ = project_table(*args)
+    g = torch.as_tensor(np.random.default_rng(19).standard_normal((n + 1, 8), dtype=np.float32),
+                        device=dev)
+    g[torch.cat([proj.radii == 0, torch.ones(1, dtype=torch.bool, device=dev)])] = 0.0
+
+    def bwd():
+        return kernels.project_backward(*args, g, **consts)
+
+    got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("J2 backward: two launches differ")
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
+        leaves = [t.to(dtype).requires_grad_(True) for t in (m, q, s, o)]
+        p = project_gaussians_plain(*leaves[:3], cam.viewmat.to(dtype), cam.K.to(dtype), WIDTH,
+                                    HEIGHT)
+        refs[dtype] = (leaves, geom_table(p, leaves[3]))
+    want64 = torch.autograd.grad(refs[torch.float64][1], refs[torch.float64][0], g.double())
+    leaves32, table32 = refs[torch.float32]
+    want32 = torch.autograd.grad(table32, leaves32, g, retain_graph=True)
+    gaps = {}
+    for name, a, b32, b64 in zip(("means", "quats", "scales", "opacities"), got, want32,
+                                 want64):
+        norm = torch.linalg.vector_norm(b64)
+        gaps[name] = dict(kernel=float(torch.linalg.vector_norm(a.double() - b64) / norm),
+                          float32_autograd=float(torch.linalg.vector_norm(b32.double() - b64)
+                                                 / norm))
+        zero_rows = proj.radii == 0
+        if not torch.isfinite(a).all() or a[zero_rows].any():
+            fail(f"J2 backward {name}: not finite, or not zero where the table's gradient is")
+        if gaps[name]["kernel"] > gaps[name]["float32_autograd"]:
+            fail(f"J2 backward {name}: relative L2 {gaps[name]} against float64 autograd")
+    del refs, want64, m, q, s, o
+
+    def plain_bwd():
+        return torch.autograd.grad(table32, leaves32, g, retain_graph=True)
+
+    nbytes = n * (44 + 44) + (n + 1) * 32
+    out["backward RGB 400k"] = with_bound(dict(
+        n=n, rel_l2=gaps, ms=device_ms(bwd), events_ms=cuda_ms(bwd, 20),
+        plain_ms=device_ms(plain_bwd), bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        ops_ms=n * (J2_BWD_OPS / FP64_OPS_PER_S + J2_FWD_OPS / FP32_OPS_PER_S) * 1e3))
+    del leaves32, table32, got, again
+
+    # launches a path
+    launches = {}
+    m, q, s, o = scene(J2_RGB_N)
+    colors = torch.rand((J2_RGB_N, 3), device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (m, q, s, o, colors)]
+    tap = torch.zeros((J2_RGB_N, 2), device=dev, requires_grad=True)
+    kernels.reset_launch_counts()
+    res = rasterize(*leaves, cam.viewmat, cam.K, WIDTH, HEIGHT,
+                    config=RasterizeConfig(geometry_grads=True), means2d_tap=tap, device=dev)
+    res.image.square().mean().backward()
+    torch.cuda.synchronize()
+    launches["RGB rasterize + backward"] = dict(kernels.launch_counts)
+    m, q, s, o = scene(J2_GAD_N)
+    feats = torch.rand((J2_GAD_N, 16), device=dev, requires_grad=True)
+    w2, h2 = WIDTH // 2, HEIGHT // 2
+    cam2 = make_camera(w2, h2, device=dev)
+    b = prepare_binning(m, q, s, cam2.viewmat, cam2.K, w2, h2, opacities=o)
+    kernels.reset_launch_counts()
+    img, _ = rasterize_binned(m, q, s, o, feats, cam2.viewmat, cam2.K, b.inst_gid,
+                              b.tile_starts, b.tile_counts, w2, h2, order=b.order,
+                              red_slot=b.red.slot_to_pos, red_rank=b.red.slot_rank,
+                              red_block=b.red.chunk_block)
+    img.sum().backward()
+    torch.cuda.synchronize()
+    launches["GAD rasterize_binned + backward"] = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        rasterize(m, q, s, o, feats.detach(), cam.viewmat, cam.K, WIDTH, HEIGHT,
+                  config=RasterizeConfig(aligned=False), device=dev)
+    torch.cuda.synchronize()
+    launches["serve rasterize"] = dict(kernels.launch_counts)
+    want = {"RGB rasterize + backward": (1, 1), "GAD rasterize_binned + backward": (1, 0),
+            "serve rasterize": (1, 0)}
+    for path, (nf, nb) in want.items():
+        got_l = (launches[path]["project_forward"], launches[path]["project_backward"])
+        if got_l != (nf, nb):
+            fail(f"J2 on {path}: (forward, backward) launches {got_l}, expected {(nf, nb)}")
+    head = out["forward RGB 400k"]
+    j2 = dict(
+        name="project", id="J2", route="cuda", source="gags_torch/splat/csrc/project.cu",
+        replaces="none: no TPU kernel (XLA fuses the JAX package's elementwise chain, "
+                 "gags_tpu/splat/projection.py)",
+        launches_by_synthetic_path={p: [launches[p]["project_forward"],
+                                        launches[p]["project_backward"]] for p in launches},
+        check="forward exact; backward relative L2 against float64 autograd",
+        max_abs_err=0.0, ms=head["ms"], events_ms=head["events_ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, library="none: no PyTorch call projects Gaussians",
+        timing="ms, plain_ms: device time per call (torch.profiler; plain_ms sums the chain's "
+               "kernels); events_ms: back-to-back calls between CUDA events",
+        by_shape=out)
+    for k, v in out.items():
+        print(f"# J2 {k}: {v['ms']:.5f} ms device (events {v['events_ms']:.5f}), plain "
+              f"{v['plain_ms']:.4f}, bound {v['bound_ms']:.5f} ({v['bound_by']}) ({gpu})",
+              flush=True)
+    print(f"# J2 launches (forward, backward) by path: {j2['launches_by_synthetic_path']}",
+          flush=True)
+    print(f"# J2 backward relative L2 against float64 autograd: {json.dumps(gaps)}", flush=True)
+    return j2
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4061,7 +4260,7 @@ def main() -> int:
                                   torch.as_tensor(neg, device=dev))
     if abs(float(direct.max()) - replies[3][2]["relevancy_max"]) > 1e-6:
         fail(f"served relevancy_max {replies[3][2]['relevancy_max']} != direct {float(direct.max())}")
-    for name in ("expand_gid", "blend_forward"):
+    for name in ("expand_gid", "blend_forward", "project_forward"):
         if launches[name] <= 0:
             fail(f"{name} was not launched while serving")
 
@@ -4098,7 +4297,7 @@ def main() -> int:
     serve_k5 = dict(chunk=cfg.chunk, args=(
         geom_p, cols_f.contiguous(), binned.inst_gid, binned.tile_starts, binned.tile_counts,
         torch.zeros(16, device=dev), tx, ty, cfg.tile_h, cfg.tile_w))
-    train_kernels, (options, query, warm, multi) = train_phase(
+    train_kernels, (options, query, warm, multi), gad_train_launches = train_phase(
         dev, gpu, lambda root, model: (options_phase(root, model, dev, gpu, serve_k5),
                                        query_phase(root, model, dev, gpu),
                                        warm_phase(root, model, dev, gpu),
@@ -4124,6 +4323,15 @@ def main() -> int:
 
     # -- 15. the probes' kernels P1 and P2 -------------------------------------------
     probe_kernels = probes_phase(dev, gpu, logs)
+    # -- 19. J2, the projection forward and backward ---------------------------------
+    j2 = project_phase(dev, gpu)
+    j2["launches"] = {  # (forward, backward) in the counted main-path runs
+        f"RGB training, {RGB_STEPS} steps": [k8["rgb_launches"].get("project_forward", 0),
+                                              k8["rgb_launches"].get("project_backward", 0)],
+        f"GAD training, {TRAIN_STEPS} steps": [gad_train_launches["project_forward"],
+                                                gad_train_launches["project_backward"]],
+        "serving": [launches["project_forward"], launches["project_backward"]],
+    }
 
     # -- 17. report --------------------------------------------------------------
     f16 = k5["features"]
@@ -4197,11 +4405,15 @@ def main() -> int:
                        for k, r in render_runs.items()},
     })
     kernels_line["kernels"].extend(probe_kernels)
+    kernels_line["kernels"].append(j2)
     kernels_line["kernels"].append(
         {**{k: j1[k] for k in keep}, **{k: v for k, v in j1.items() if k not in keep}})
     for r in kernels_line["kernels"]:  # phase 16: launches inside the ranks, by path
         r["distributed_launches"] = {path: counts.get(r["name"], 0)
                                      for path, counts in multi["distributed_launches"].items()}
+    j2["distributed_launches"] = {  # (forward, backward)
+        path: [counts.get("project_forward", 0), counts.get("project_backward", 0)]
+        for path, counts in multi["distributed_launches"].items()}
     print(f"# GAS report: {json.dumps(gas_report)}")
     print(f"# multi-rank report ({MULTI_LABEL}): "
           f"{json.dumps({k: v for k, v in multi.items() if k != 'distributed_launches'})}")

@@ -12,10 +12,14 @@
                             ellipse-tile cull and the sort key
   K8 blend_backward_full    full VJP of the blend: colour and screen-space
                             geometry gradients, per instance
+  J2 project_forward        the per-Gaussian EWA projection and geometry
+     project_backward       table, and its VJP (no TPU counterpart)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the hand-written CUDA kernel (``csrc/*.cu``, built with nvcc at
-first use and bound through ctypes) or raises. There is no fallback from
+first use and bound through ctypes) or raises. J2's wrappers take CUDA
+tensors only: `splat/projection.py` dispatches, and its elementwise chain
+(with autograd through it) is J2's plain version. There is no fallback from
 the kernel to the plain version. `launch_counts` counts kernel launches
 only, so a caller can show that a run went through the kernels.
 """
@@ -38,8 +42,10 @@ BLEND_BACKWARD_SRC = CSRC / "blend_backward.cu"
 BLEND_BACKWARD_FULL_SRC = CSRC / "blend_backward_full.cu"
 SORTED_SEGMENT_SUM_SRC = CSRC / "sorted_segment_sum.cu"
 DENSE_SEGMENT_SUM_SRC = CSRC / "dense_segment_sum.cu"
+PROJECT_SRC = CSRC / "project.cu"
 SOURCES = (EXPAND_GID_SRC, EXPAND_KEYS_SRC, BLEND_FORWARD_SRC, BLEND_BACKWARD_SRC,
-           BLEND_BACKWARD_FULL_SRC, SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC)
+           BLEND_BACKWARD_FULL_SRC, SORTED_SEGMENT_SUM_SRC, DENSE_SEGMENT_SUM_SRC,
+           PROJECT_SRC)
 
 ALPHA_FLOOR = 1.0 / 255.0
 ALPHA_CLAMP = 0.999
@@ -57,6 +63,8 @@ launch_counts = {
     "blend_forward": 0,
     "expand_gid": 0,
     "expand_keys": 0,
+    "project_forward": 0,
+    "project_backward": 0,
 }
 
 
@@ -859,6 +867,110 @@ def dense_segment_sum(values, ids, num_segments):
     _kernels.check(lib, err, "dense_segment_sum")
     launch_counts["dense_segment_sum"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# J2: project_forward / project_backward
+# --------------------------------------------------------------------------
+
+
+def _project_inputs(means, quats, scales, opacities, viewmat, K):
+    dev = means.device
+    if dev.type != "cuda":
+        raise ValueError(f"J2: CUDA tensors only (splat/projection.py runs the plain chain), "
+                         f"got {dev}")
+    n = means.shape[0]
+    shapes = dict(means=(n, 3), quats=(n, 4), scales=(n, 3), opacities=(n,), viewmat=(4, 4),
+                  K=(3, 3))
+    out = {}
+    for name, t in zip(shapes, (means, quats, scales, opacities, viewmat, K)):
+        if t is None:
+            out[name] = None
+            continue
+        t = t.contiguous()
+        _check_tensor(name, t, torch.float32, dev)
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name}: expected {shapes[name]}, got {tuple(t.shape)}")
+        out[name] = t
+    return n, out
+
+
+def project_forward(means, quats, scales, viewmat, K, width: int, height: int, *,
+                    eps2d: float, near_plane: float, far_plane: float, antialiased: bool,
+                    opacities=None, extents: bool = False, tap=None, table: bool = False,
+                    projection: bool = True):
+    """J2 forward: the projection of N Gaussians into one camera, bit for
+    bit the plain chain's (`projection.project_gaussians_plain`).
+    `extents` shrinks radii_x / radii_y to the alpha-floor contour of
+    `opacities`; with `table`, also the (N+1, 8) geometry table
+    [mx + tap, my + tap, conic, opacity x compensation, 0, 0] with its
+    zero sentinel row (needs `opacities`; `tap`, an optional (N, 2)
+    tensor, is added to the screen position there only). Without
+    `projection` only the table is written. Returns ((means2d, conics,
+    depths, radii, compensations, radii_x, radii_y) or None, table or
+    None)."""
+    if (table or extents) and opacities is None:
+        raise ValueError("project_forward: the table and the extents need opacities")
+    if not (projection or table):
+        raise ValueError("project_forward: neither the projection nor the table asked for")
+    n, t = _project_inputs(means, quats, scales, opacities, viewmat, K)
+    dev = means.device
+    if tap is not None:
+        tap = tap.contiguous()
+        _check_tensor("tap", tap, torch.float32, dev)
+        if tuple(tap.shape) != (n, 2):
+            raise ValueError(f"tap: expected ({n}, 2), got {tuple(tap.shape)}")
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def i32():
+        return torch.empty((n,), dtype=torch.int32, device=dev)
+
+    proj = (f32(n, 2), f32(n, 3), f32(n), i32(), f32(n), i32(), i32()) if projection else None
+    tab = f32(n + 1, 8) if table else None
+    lib = _kernels.load(PROJECT_SRC)
+    fn = lib.gags_project_forward
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9)
+    fn.restype = ctypes.c_int
+    opt = [None if x is None else _ptr(x) for x in (t["opacities"], tap, tab)]
+    outs = (None,) * 7 if proj is None else tuple(map(_ptr, proj))
+    err = fn(_ptr(t["means"]), _ptr(t["quats"]), _ptr(t["scales"]), opt[0], opt[1],
+             _ptr(t["viewmat"]), _ptr(t["K"]), n, width, height, eps2d, near_plane, far_plane,
+             int(extents), int(antialiased), *outs, opt[2], _stream(means))
+    _kernels.check(lib, err, "project_forward")
+    launch_counts["project_forward"] += 1
+    return proj, tab
+
+
+def project_backward(means, quats, scales, opacities, viewmat, K, width: int, height: int,
+                     g_table, *, eps2d: float, near_plane: float, far_plane: float,
+                     antialiased: bool):
+    """J2 backward: the gradients of means (N, 3), quats (N, 4), scales
+    (N, 3) and opacities (N,) from the (N+1, 8) geometry table's gradient
+    `g_table` (the sentinel row and the two zero columns ignored), as
+    autograd gives them through the plain chain; a row whose gradient is
+    zero gets zeros. The tap's gradient is g_table[:N, :2]."""
+    n, t = _project_inputs(means, quats, scales, opacities, viewmat, K)
+    if t["opacities"] is None:
+        raise ValueError("project_backward: needs the opacities")
+    g_table = _aligned16(g_table.contiguous())
+    _check_tensor("g_table", g_table, torch.float32, means.device, ndim=2)
+    if tuple(g_table.shape) != (n + 1, 8):
+        raise ValueError(f"g_table: expected ({n + 1}, 8), got {tuple(g_table.shape)}")
+    grads = tuple(torch.empty_like(t[k]) for k in ("means", "quats", "scales", "opacities"))
+    lib = _kernels.load(PROJECT_SRC)
+    fn = lib.gags_project_backward
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_double] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 6)
+    fn.restype = ctypes.c_int
+    err = fn(*(_ptr(t[k]) for k in ("means", "quats", "scales", "opacities", "viewmat", "K")),
+             n, width, height, eps2d, near_plane, far_plane, int(antialiased), _ptr(g_table),
+             *(_ptr(g) for g in grads), _stream(means))
+    _kernels.check(lib, err, "project_backward")
+    launch_counts["project_backward"] += 1
+    return grads
 
 
 def build_all() -> dict[str, str]:

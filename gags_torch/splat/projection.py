@@ -6,6 +6,12 @@ Perspective EWA with the FoV-clamped Jacobian, a +0.3 px^2 low-pass on the
 when opacities are given, and a border cull on the geometric 3-sigma box.
 Every 3x3 product is written out elementwise in the same order as the JAX
 package, so both packages give the same float32 values on the CPU.
+
+On CUDA tensors the projection is kernel J2 (`csrc/project.cu`): one
+launch forward, which equals this chain on the card bit for bit, and one
+backward (`project_table`'s VJP) in place of autograd's ~440. On CPU
+tensors this elementwise chain runs, and autograd through it is the
+backward.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from gags_torch.splat import kernels
 
 EPS2D = 0.3
 NEAR_PLANE = 0.01
@@ -39,7 +48,7 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def project_gaussians(
+def project_gaussians_plain(
     means: torch.Tensor,
     quats: torch.Tensor,
     scales: torch.Tensor,
@@ -53,12 +62,8 @@ def project_gaussians(
     antialiased: bool = False,
     opacities: Optional[torch.Tensor] = None,
 ) -> ProjectedGaussians:
-    """Project N Gaussians into one camera.
-
-    means (N, 3), quats (N, 4) wxyz, scales (N, 3) activated, viewmat
-    (4, 4) world→camera, K (3, 3). With `opacities`, radii_x/radii_y shrink
-    to the alpha-floor contour (image-exact). Culled Gaussians get radii 0.
-    """
+    """`project_gaussians` as an elementwise chain, differentiable by
+    autograd (J2's plain version)."""
     w0, w1, w2 = means[:, 0], means[:, 1], means[:, 2]
     q0, q1, q2, q3 = quats[:, 0], quats[:, 1], quats[:, 2], quats[:, 3]
     s0, s1, s2 = scales[:, 0], scales[:, 1], scales[:, 2]
@@ -173,3 +178,142 @@ def project_gaussians(
         radii_x=torch.where(valid, rx, zero).to(torch.int32),
         radii_y=torch.where(valid, ry, zero).to(torch.int32),
     )
+
+
+def geom_table(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tensor:
+    """(N+1, 8) table [mx, my, ca, cb, cc, opac, 0, 0] with a zero
+    (opacity-0) sentinel row; differentiable where its inputs are."""
+    n = proj.means2d.shape[0]
+    rows = torch.cat([proj.means2d, proj.conics,
+                      effective_opacity(opacities, proj.compensations)[:, None],
+                      proj.means2d.new_zeros((n, 2))], dim=1)
+    return torch.cat([rows, rows.new_zeros((1, 8))])
+
+
+def _camera(viewmat, K, means):
+    return (viewmat.to(device=means.device, dtype=means.dtype),
+            K.to(device=means.device, dtype=means.dtype))
+
+
+def project_gaussians(
+    means: torch.Tensor,
+    quats: torch.Tensor,
+    scales: torch.Tensor,
+    viewmat: torch.Tensor,
+    K: torch.Tensor,
+    width: int,
+    height: int,
+    eps2d: float = EPS2D,
+    near_plane: float = NEAR_PLANE,
+    far_plane: float = FAR_PLANE,
+    antialiased: bool = False,
+    opacities: Optional[torch.Tensor] = None,
+) -> ProjectedGaussians:
+    """Project N Gaussians into one camera.
+
+    means (N, 3), quats (N, 4) wxyz, scales (N, 3) activated, viewmat
+    (4, 4) world→camera, K (3, 3). With `opacities`, radii_x/radii_y shrink
+    to the alpha-floor contour (image-exact). Culled Gaussians get radii 0.
+    On CUDA tensors one launch of J2, whose outputs carry no gradient
+    (`project_table` is the differentiable form); on CPU tensors the plain
+    chain, differentiable by autograd.
+    """
+    if not kernels._dispatch(means):
+        return project_gaussians_plain(means, quats, scales, viewmat, K, width, height, eps2d,
+                                       near_plane, far_plane, antialiased, opacities)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (means, quats, scales, opacities)):
+        raise ValueError("project_gaussians: no gradient on CUDA; project_table carries one")
+    vm, Kf = _camera(viewmat, K, means)
+    proj, _ = kernels.project_forward(
+        means, quats, scales, vm, Kf, width, height, eps2d=eps2d, near_plane=near_plane,
+        far_plane=far_plane, antialiased=antialiased, opacities=opacities,
+        extents=opacities is not None)
+    return ProjectedGaussians(*proj)
+
+
+_CONSTANTS = dict(eps2d=EPS2D, near_plane=NEAR_PLANE, far_plane=FAR_PLANE)
+
+
+@torch.no_grad()
+def project_table_only(means, quats, scales, opacities, viewmat, K, width: int,
+                       height: int) -> torch.Tensor:
+    """`project_table`'s (N+1, 8) geometry table alone, without gradient
+    or antialiasing, for a caller that bins nothing (the GAD step, whose
+    binning is made once a camera). CUDA: one J2 launch that writes the
+    table only."""
+    if not kernels._dispatch(means):
+        return geom_table(project_gaussians_plain(means, quats, scales, viewmat, K, width, height),
+                          opacities)
+    vm, Kf = _camera(viewmat, K, means)
+    _, table = kernels.project_forward(means, quats, scales, vm, Kf, width, height,
+                                       antialiased=False, opacities=opacities, table=True,
+                                       projection=False, **_CONSTANTS)
+    return table
+
+
+class _ProjectTable(torch.autograd.Function):
+    """The projection and the geometry table in one forward; the table is
+    differentiable with respect to means, quats, scales, opacities and
+    the tap. CUDA: J2's two launches. CPU: the plain chain forward and, in
+    the backward, autograd through the chain recomputed without the
+    extents (integers no gradient reads) and `geom_table`; the tap's
+    gradient is the table's means2d columns either way."""
+
+    @staticmethod
+    def forward(ctx, means, quats, scales, opacities, tap, viewmat, K, width, height, extents,
+                antialiased):
+        if kernels._dispatch(means):
+            proj, table = kernels.project_forward(
+                means, quats, scales, viewmat, K, width, height, antialiased=antialiased,
+                opacities=opacities, extents=extents, tap=tap, table=True, **_CONSTANTS)
+        else:
+            proj = project_gaussians_plain(means, quats, scales, viewmat, K, width, height,
+                                           antialiased=antialiased,
+                                           opacities=opacities if extents else None)
+            tapped = proj if tap is None else proj._replace(means2d=proj.means2d + tap)
+            table = geom_table(tapped, opacities)
+        ctx.save_for_backward(means, quats, scales, opacities, viewmat, K)
+        ctx.args = (width, height, antialiased)
+        ctx.mark_non_differentiable(*proj)
+        return (*proj, table)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        g_table = grads[-1]
+        means, quats, scales, opacities, viewmat, K = ctx.saved_tensors
+        width, height, antialiased = ctx.args
+        n = means.shape[0]
+        if kernels._dispatch(means):
+            g = kernels.project_backward(means, quats, scales, opacities, viewmat, K, width,
+                                         height, g_table, antialiased=antialiased, **_CONSTANTS)
+        else:
+            inputs = [t.detach().requires_grad_(True) for t in (means, quats, scales, opacities)]
+            with torch.enable_grad():
+                proj = project_gaussians_plain(*inputs[:3], viewmat, K, width, height,
+                                               antialiased=antialiased)
+                table = geom_table(proj, inputs[3])
+            g = torch.autograd.grad(table, inputs, g_table, allow_unused=True)
+        g = [gi if need else None for gi, need in zip(g, ctx.needs_input_grad[:4])]
+        g_tap = g_table[:n, :2] if ctx.needs_input_grad[4] else None
+        return (*g, g_tap) + (None,) * 6
+
+
+
+def project_table(means, quats, scales, opacities, viewmat, K, width: int, height: int, *,
+                  extents: bool = True, means2d_tap: Optional[torch.Tensor] = None,
+                  antialiased: bool = False):
+    """One projection for the binning and the blend: the projected
+    Gaussians (radii_x / radii_y shrunk to the opacities' alpha-floor
+    contour when `extents`), which carry no gradient, and the (N+1, 8)
+    geometry table [mx, my, ca, cb, cc, opacity x compensation, 0, 0]
+    with its zero sentinel row, differentiable with respect to means,
+    quats, scales, opacities and `means2d_tap` (an optional (N, 2) zero
+    tensor added to the table's mx, my: its gradient is dL/dmeans2d).
+    CUDA: J2 forward and backward, one launch each. Returns
+    (ProjectedGaussians, table)."""
+    vm, Kf = _camera(viewmat, K, means)
+    out = _ProjectTable.apply(means, quats, scales, opacities, means2d_tap, vm, Kf, width,
+                              height, extents, antialiased)
+    return ProjectedGaussians(*out[:7]), out[7]

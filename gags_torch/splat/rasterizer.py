@@ -10,9 +10,10 @@ aligned (training) binning blends with kernel K1 and carries a gradient:
 `RasterizeConfig.geometry_grads` (RGB pretraining) `_BlendFull` takes its
 place: the image AND the alpha are differentiable, its backward runs K8
 (colour and screen-space geometry gradients per instance) and K3 twice,
-and autograd carries the (N+1, 8) geometry-table gradient through a
-second, differentiable projection to means, quats, scales and
-opacities. The binning always comes from a projection without gradient.
+and the projection's own backward (J2 on the card) carries the (N+1, 8)
+geometry-table gradient to means, quats, scales and opacities. One
+projection (`projection.project_table`) gives the binning its extents
+and the blend its table; the binning is never differentiated.
 The unaligned (inference) binning blends with K5 and refuses a backward,
 as in JAX. `prepare_binning` + `rasterize_binned` split the colour-only
 path for GAD training, where the geometry is frozen and each camera's
@@ -40,7 +41,8 @@ import torch
 
 from gags_torch import resolve_device
 from gags_torch.splat import kernels, tiles
-from gags_torch.splat.projection import ProjectedGaussians, effective_opacity, project_gaussians
+from gags_torch.splat.projection import (ProjectedGaussians, effective_opacity,
+                                         project_gaussians, project_table, project_table_only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,16 +99,6 @@ def _tiles_to_image(tile_img, tiles_x, tiles_y, tile_h, tile_w, height, width):
     return img[:height, :width]
 
 
-def _geom_table(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tensor:
-    """(N+1, 8) table [mx, my, ca, cb, cc, opac, 0, 0] with a zero
-    (opacity-0) sentinel row; differentiable where its inputs are."""
-    n = proj.means2d.shape[0]
-    rows = torch.cat([proj.means2d, proj.conics,
-                      effective_opacity(opacities, proj.compensations)[:, None],
-                      proj.means2d.new_zeros((n, 2))], dim=1)
-    return torch.cat([rows, rows.new_zeros((1, 8))])
-
-
 def order_ext(order: torch.Tensor) -> torch.Tensor:
     """Depth order extended with the sentinel row (rank n → row n); tables
     indexed by `inst_gid` are permuted with it: `table[order_ext(order)]`."""
@@ -127,32 +119,31 @@ def _cull_rows(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tenso
     return torch.cat([proj.means2d, proj.conics, lvl[:, None]], dim=1).to(torch.float32)
 
 
-def _project_and_bin(means, quats, scales, opacities, viewmat, K, width, height, cfg):
-    """Project + bin (the binning arguments are set here only). The cull
-    needs the opacities: without them (`prepare_binning` called without)
-    it is off, as in JAX."""
-    proj = project_gaussians(
-        means, quats, scales, viewmat, K, width, height,
-        opacities=opacities if cfg.opacity_extents else None,
-    )
+@torch.no_grad()
+def _bin(proj, opacities, width, height, cfg):
+    """Bin a projection (the binning arguments are set here only). The
+    cull needs the opacities: without them (`prepare_binning` called
+    without) it is off, as in JAX."""
     cull = (_cull_rows(proj, opacities)
             if _wants_cull(cfg) and opacities is not None else None)
-    binned = tiles.bin_gaussians(
+    return tiles.bin_gaussians(
         proj.means2d, proj.radii_x, proj.depths, width, height,
-        cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(means.shape[0]),
+        cfg.tile_w, cfg.tile_h, budget=cfg.instance_budget(proj.means2d.shape[0]),
         chunk=cfg.chunk, radii_y=proj.radii_y, aligned=cfg.aligned,
         cull_rows=cull, fused_keys=cfg.fused_keys,
     )
-    return proj, binned
 
 
-def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg):
-    """Project + bin + geometry table. No colour dependence."""
+def _prepare(means, quats, scales, opacities, viewmat, K, width, height, cfg,
+             means2d_tap=None):
+    """Project + bin + geometry table, from one projection. No colour
+    dependence. The table is differentiable where the geometry (and the
+    tap) are; the binning never is."""
     tiles_x = -(-width // cfg.tile_w)
     tiles_y = -(-height // cfg.tile_h)
-    proj, binned = _project_and_bin(means, quats, scales, opacities, viewmat, K,
-                                    width, height, cfg)
-    return proj, binned, _geom_table(proj, opacities), tiles_x, tiles_y
+    proj, table = project_table(means, quats, scales, opacities, viewmat, K, width, height,
+                                extents=cfg.opacity_extents, means2d_tap=means2d_tap)
+    return proj, _bin(proj, opacities, width, height, cfg), table, tiles_x, tiles_y
 
 
 def _inverse_order(order: torch.Tensor) -> torch.Tensor:
@@ -316,8 +307,9 @@ def prepare_binning(means, quats, scales, viewmat, K, width: int, height: int,
     """The sorted instance list of one (frozen geometry, camera) pair: the
     sort-dominated part of rasterization, computed once per camera by the
     GAD trainer and reused for every step. Runs on the inputs' device."""
-    return _project_and_bin(means, quats, scales, opacities, viewmat, K,
-                            width, height, config)[1]
+    proj = project_gaussians(means, quats, scales, viewmat, K, width, height,
+                             opacities=opacities if config.opacity_extents else None)
+    return _bin(proj, opacities, width, height, config)
 
 
 def rasterize_binned(means, quats, scales, opacities, colors, viewmat, K,
@@ -333,8 +325,8 @@ def rasterize_binned(means, quats, scales, opacities, colors, viewmat, K,
     Runs on the inputs' device. Returns (image (H, W, C), alpha (H, W)).
     """
     with torch.no_grad():
-        proj = project_gaussians(means, quats, scales, viewmat, K, width, height)
-        geom = _geom_table(proj, opacities)[order_ext(order.long())]
+        table = project_table_only(means, quats, scales, opacities, viewmat, K, width, height)
+        geom = table[order_ext(order.long())]
         inv_order = _inverse_order(order)
     tiles_x = -(-width // config.tile_w)
     tiles_y = -(-height // config.tile_h)
@@ -373,7 +365,7 @@ def rasterize(
     The image is differentiable with respect to `colors` on an aligned
     binning (the default). With `config.geometry_grads` the image and the
     alpha are also differentiable with respect to means, quats, scales and
-    opacities (K8 + autograd through the projection); otherwise geometry
+    opacities (K8 + the projection's backward); otherwise geometry
     receives no gradient. `means2d_tap`, an optional (N, 2) ZERO tensor
     (geometry_grads only), is added to the projected screen positions: its
     gradient is dL/dmeans2d in pixels, the densification signal the
@@ -390,18 +382,17 @@ def rasterize(
     if not config.geometry_grads:
         geo = [t.detach() for t in geo]
     viewmat, K = f32(viewmat).detach(), f32(K).detach()
+    tap = f32(means2d_tap) if config.geometry_grads and means2d_tap is not None else None
+    # one projection: the binning's extents and the table, whose gradient
+    # (geometry_grads) the projection's backward carries to the geometry
+    proj, binned, geom, tiles_x, tiles_y = _prepare(*geo, viewmat, K, width, height, config,
+                                                    means2d_tap=tap)
     with torch.no_grad():
-        proj, binned, geom, tiles_x, tiles_y = _prepare(*geo, viewmat, K, width, height, config)
         # inst_gid holds depth ranks: permute both tables into rank order
         perm = order_ext(binned.order.long())
         inv_order = _inverse_order(binned.order)
     if config.geometry_grads:
-        # a second, differentiable projection: autograd chains the table
-        # gradient back to the geometry
-        proj = project_gaussians(*geo[:3], viewmat, K, width, height)
-        if means2d_tap is not None:
-            proj = proj._replace(means2d=proj.means2d + f32(means2d_tap))
-        geom_p = permute_rows(_geom_table(proj, geo[3]), perm, _inverse_order(perm))
+        geom_p = permute_rows(geom, perm, _inverse_order(perm))
     else:
         geom_p = geom[perm].contiguous()
     colors_p = permute_rows(colors, binned.order, inv_order)

@@ -14,6 +14,7 @@ from gags_tpu.splat import pallas_kernel as pk
 from gags_tpu.splat import tiles as jt
 from gags_torch import _kernels
 from gags_torch.splat import kernels
+from gags_torch.splat.projection import project_table
 from gags_torch.splat.rasterizer import RasterizeConfig, _prepare, order_ext
 
 W, H, F = 64, 32, 40.0
@@ -170,10 +171,19 @@ def test_cpu_wrappers_launch_no_kernel():
                                        shift=3, tiles_x=4, tile_w=16, tile_h=16)
     # one-column rects (pw = 1): slot s of a rank lies s tiles down
     assert counts.tolist() == [5] and keys[:5].tolist() == [0, 32, 2, 34, 66]
+    rng = np.random.default_rng(4)
+    geo = [torch.as_tensor(a.astype(np.float32)).requires_grad_(True) for a in (
+        rng.uniform(-1, 1, (40, 3)) + [0, 0, 5], rng.normal(size=(40, 4)),
+        np.full((40, 3), 0.1), np.full(40, 0.5))]
+    K = torch.tensor([[F, 0, W / 2], [0, F, H / 2], [0, 0, 1]])
+    _, table = project_table(*geo, torch.eye(4), K, W, H)  # J2's plain versions
+    table.sum().backward()
+    assert all(t.grad is not None for t in geo)
     assert set(kernels.launch_counts.values()) == {0}
     assert set(kernels.launch_counts) == {
         "blend_forward_aligned", "blend_backward", "blend_backward_full", "sorted_segment_sum",
-        "dense_segment_sum", "blend_forward", "expand_gid", "expand_keys"}
+        "dense_segment_sum", "blend_forward", "expand_gid", "expand_keys", "project_forward",
+        "project_backward"}
 
 
 def test_library_path_follows_included_headers(tmp_path):

@@ -7,8 +7,9 @@ NCCL check of `nccl_main`: gags_torch.parallel with one rank a card)
 
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
-  2. build every kernel from gags_torch/splat/csrc, gags_torch/probes/csrc
-     and gags_torch/utils/csrc (one nvcc per source, all at once);
+  2. build every kernel from gags_torch/splat/csrc, gags_torch/probes/csrc,
+     gags_torch/utils/csrc, gags_torch/core/csrc and gags_torch/rgb/csrc
+     (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
      torch.searchsorted (the library yardstick), as device time per call
@@ -126,8 +127,9 @@ Phases, each of which fails the run:
      decode timed and held to the pixels), then train 300 steps through gags_torch.cli.train_rgb.run
      at -r 1 (SH degree 3, capacity factor 4: 400k slots; densify at 100
      and 200) with the launch counts set to 0 just before and read just
-     after: K1, K6 and K8 must each have launched >= 300 times and K3 >=
-     600, the loss must stay finite and the mean of the last 20 losses
+     after: K1, K6, K8, J2 (each way), J3 (each way), J4 (each way) and
+     J5 must each have launched >= 300 times and K3 >= 600, the loss must
+     stay finite and the mean of the last 20 losses
      fall below that of the first 20; n_alive before and after each
      densify;
  11. time 30 more steps of make_rgb_step at SH degree 3 (median, p90 from
@@ -246,12 +248,22 @@ Phases, each of which fails the run:
      beside the counted runs of phases 4, 7 and 10: an RGB rasterize with
      geometry gradients and its backward, a GAD rasterize_binned, a
      serving rasterize;
+ 20. J3 (core/csrc/sh.cu), J4 (rgb/csrc/photometric_loss.cu) and J5
+     (rgb/csrc/adam.cu), the RGB step's SH colours, L1 + SSIM loss and
+     update, alone at the RGB cell's sizes (400k slots, K = 16, SH 3,
+     1280x720): J3 forward and J5 bit for bit the eager chains on the
+     card, J3 and J4 backward within 1e-6 relative L2 of float64, J4's
+     loss within 1e-6 of float64; device time (torch.profiler) and
+     CUDA-events time beside the eager chain's device time and the bound
+     (bytes: inputs read once, outputs written once, at 3.35 TB/s;
+     operations: J4's float64 filter sums at 34 TFLOP/s); their launches
+     are phase 10's counted run's;
  17. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
      stage-A launches; every kernel with its phase-16 launches), P1-P2,
      J2 (its launches in the counted runs of phases 10, 7 and 4: RGB
-     training, GAD training, serving) and J1 (its launches in phase 18's
+     training, GAD training, serving), J3-J5 (phase 10's) and J1 (its launches in phase 18's
      training, GAS and convert runs),
      the query and multi-rank reports, then the card's name and power
      limit, then the final {"ok": true, ...}.
@@ -290,6 +302,15 @@ FP64_OPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores
 # csrc/project.cu
 J2_RGB_N, J2_GAD_N = 400_000, 1_000_000
 J2_FWD_OPS, J2_BWD_OPS = 250, 570
+# J3-J5 (phase 20): the RGB step's slots. J3 at SH 3, counted from
+# core/csrc/sh.cu: ~240 float32 operations a Gaussian forward (the
+# direction and three channels' sums), ~400 float64 backward beside the
+# forward it recomputes. J4 a pixel and channel, float64, the separable
+# window's sums without the halos: 5 maps x 22 taps x 2 and the SSIM term
+# forward; backward that, the P maps' ~30 and 3 maps x 22 taps x 2
+J3_N = 400_000
+J3_FWD_OPS, J3_BWD_OPS = 240, 400
+J4_FWD_OPS, J4_BWD_OPS = 240, 410
 PROFILE_RUNS = 5  # device_ms's profiled runs at most before it gives up
 # device_ms's runs by calling function: accepted, short of records, the least share of a
 # name's records kept, refused by reason
@@ -2565,7 +2586,9 @@ def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
     import dataclasses
 
     from gags_torch.cli.train_rgb import RunConfig, run
+    from gags_torch.core import sh as sh_mod
     from gags_torch.core.sh import sh_colors
+    from gags_torch.rgb import kernels as rgb_step_kernels
     from gags_torch.rgb.train import RgbConfig, make_rgb_step
     from gags_torch.scene.dataset import camera_from_info, detect_and_load
     from gags_torch.scene.gaussian_data import GaussianScene
@@ -2597,16 +2620,22 @@ def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
 
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
+        sh_mod.reset_launch_counts()
+        rgb_step_kernels.reset_launch_counts()
         t0 = time.perf_counter()
         state = run(rc, cfg, on_step=on_step)
         torch.cuda.synchronize()
-        launches = dict(kernels.launch_counts)
+        launches = dict(kernels.launch_counts, **sh_mod.launch_counts,
+                        **rgb_step_kernels.launch_counts)
         run_s = time.perf_counter() - t0
         print(f"# launches during RGB training: {launches}")
         for name, least in (("blend_forward_aligned", RGB_STEPS), ("expand_gid", RGB_STEPS),
                             ("blend_backward_full", RGB_STEPS),
                             ("sorted_segment_sum", 2 * RGB_STEPS),
-                            ("project_forward", RGB_STEPS), ("project_backward", RGB_STEPS)):
+                            ("project_forward", RGB_STEPS), ("project_backward", RGB_STEPS),
+                            ("sh_forward", RGB_STEPS), ("sh_backward", RGB_STEPS),
+                            ("loss_forward", RGB_STEPS), ("loss_backward", RGB_STEPS),
+                            ("adam_update", RGB_STEPS)):
             if launches[name] < least:
                 fail(f"{name} launched {launches[name]} times in {RGB_STEPS} RGB steps "
                      f"(at least {least} expected)")
@@ -4086,6 +4115,166 @@ def project_phase(dev: torch.device, gpu: str) -> dict:
     return j2
 
 
+def rgb_step_kernels_phase(dev: torch.device, gpu: str) -> list:
+    """Phase 20 (see the module docstring). Returns the kernels-line
+    entries of J3, J4 and J5, their launches left to the caller."""
+    from gags_torch.core import sh as sh_mod
+    from gags_torch.rgb import kernels as rk
+    from gags_torch.rgb import train as rt
+    from gags_torch.utils.metrics import _filter2d_same, _gaussian_window
+
+    n, k, deg, w, h = J3_N, 16, 3, WIDTH, HEIGHT
+    g = torch.Generator().manual_seed(20)
+    sh = (torch.randn((n, k, 3), generator=g) * 0.5).to(dev)
+    sh[:, 0] += 1.0
+    means = (torch.randn((n, 3), generator=g) * 2.0).to(dev)
+    campos = torch.tensor([0.3, -0.2, -6.0], device=dev)
+    g_colors = torch.randn((n, 3), generator=g).to(dev)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b.double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    # -- J3 ---------------------------------------------------------------------
+    got = sh_mod.sh_forward(deg, sh, means, campos)
+    if not torch.equal(got, sh_mod.sh_colors_plain(deg, sh, means, campos)):
+        fail("J3 forward differs from the eager chain")
+    g_sh, g_means = sh_mod.sh_backward(deg, sh, means, campos, g_colors)
+    want = sh_mod.sh_colors_backward_plain(deg, sh.double(), means.double(), campos.double(),
+                                           g_colors.double(), mask_dtype=torch.float32)
+    j3_gaps = dict(sh=rel(g_sh, want[0]), means=rel(g_means, want[1]))
+    if max(j3_gaps.values()) > 1e-6:
+        fail(f"J3 backward: relative L2 {j3_gaps} against float64")
+    leaves = [t.clone().requires_grad_(True) for t in (sh, means)]
+    colors = sh_mod.sh_colors_plain(deg, *leaves, campos)
+    d = 3 * (deg + 1) ** 2
+    j3 = {
+        "forward": with_bound(dict(
+            ms=device_ms(lambda: sh_mod.sh_forward(deg, sh, means, campos)),
+            events_ms=cuda_ms(lambda: sh_mod.sh_forward(deg, sh, means, campos), 20),
+            plain_ms=device_ms(lambda: sh_mod.sh_colors_plain(deg, sh, means, campos)),
+            bytes_ms=n * 4 * (d + 3 + 3) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=n * J3_FWD_OPS / FP32_OPS_PER_S * 1e3)),
+        "backward": with_bound(dict(
+            ms=device_ms(lambda: sh_mod.sh_backward(deg, sh, means, campos, g_colors)),
+            events_ms=cuda_ms(lambda: sh_mod.sh_backward(deg, sh, means, campos, g_colors), 20),
+            plain_ms=device_ms(lambda: torch.autograd.grad(colors, leaves, g_colors,
+                                                           retain_graph=True)),
+            bytes_ms=n * 4 * (d + 3 + 3 + 3 * k + 3) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=n * (J3_FWD_OPS / FP32_OPS_PER_S + J3_BWD_OPS / FP64_OPS_PER_S) * 1e3)),
+    }
+    del leaves, colors, g_sh, g_means, want
+
+    # -- J4 ---------------------------------------------------------------------
+    gt = torch.rand((h, w, 3), generator=g).to(dev)
+    img = (gt + 0.1 * torch.randn((h, w, 3), generator=g).to(dev)).clamp(0, 1)
+    loss = rk.loss_forward(img, gt, 0.2)
+    # the eager chain in float64, its window in float64
+    leaf = img.double().requires_grad_(True)
+    win = _gaussian_window(11, device=dev).double()
+    stack = torch.cat([leaf, gt.double(), leaf * leaf, gt.double() ** 2, leaf * gt.double()], -1)
+    mu1, mu2, f11, f22, f12 = torch.split(_filter2d_same(stack, win), 3, dim=-1)
+    m = ((2 * mu1 * mu2 + 1e-4) * (2 * (f12 - mu1 * mu2) + 9e-4)) / (
+        (mu1 * mu1 + mu2 * mu2 + 1e-4) * ((f11 - mu1 * mu1) + (f22 - mu2 * mu2) + 9e-4))
+    loss64 = 0.8 * torch.mean(torch.abs(leaf - gt.double())) + 0.2 * (1.0 - torch.mean(m))
+    want_img, = torch.autograd.grad(loss64, leaf)
+    one = torch.ones((1,), device=dev)
+    got_img = rk.loss_backward(img, gt, 0.2, one)
+    j4_gaps = dict(loss=abs(float(loss) - float(loss64.detach())) / abs(float(loss64.detach())),
+                   image_gradient=rel(got_img, want_img))
+    if max(j4_gaps.values()) > 1e-6:
+        fail(f"J4: relative gaps {j4_gaps} against float64")
+    del leaf, stack, mu1, mu2, f11, f22, f12, m, loss64, want_img
+    leaf32 = img.clone().requires_grad_(True)
+    eager_loss = rk.photometric_loss_plain(leaf32, gt, 0.2)
+    px = h * w * 3
+    j4 = {
+        "forward": with_bound(dict(
+            ms=device_ms(lambda: rk.loss_forward(img, gt, 0.2)),
+            events_ms=cuda_ms(lambda: rk.loss_forward(img, gt, 0.2), 20),
+            plain_ms=device_ms(lambda: rk.photometric_loss_plain(img, gt, 0.2)),
+            bytes_ms=px * 8 / HBM_BYTES_PER_S * 1e3,
+            ops_ms=px * J4_FWD_OPS / FP64_OPS_PER_S * 1e3)),
+        "backward": with_bound(dict(
+            ms=device_ms(lambda: rk.loss_backward(img, gt, 0.2, one)),
+            events_ms=cuda_ms(lambda: rk.loss_backward(img, gt, 0.2, one), 20),
+            plain_ms=device_ms(lambda: torch.autograd.grad(eager_loss, leaf32,
+                                                           retain_graph=True)),
+            bytes_ms=px * 12 / HBM_BYTES_PER_S * 1e3,
+            ops_ms=px * J4_BWD_OPS / FP64_OPS_PER_S * 1e3)),
+    }
+    del leaf32, eager_loss, got_img
+
+    # -- J5 ---------------------------------------------------------------------
+    shapes = dict(means=(n, 3), sh_dc=(n, 1, 3), sh_rest=(n, k - 1, 3), opacities_raw=(n,),
+                  scales_raw=(n, 3), quats=(n, 4))
+
+    def r(shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    st = rt.RgbState(
+        step=3000, params={kk: r(s) for kk, s in shapes.items()},
+        alive=(torch.rand((n,), generator=g) < 0.3).to(dev), grad_accum=r((n,)).abs(),
+        denom=torch.zeros((n,), device=dev), max_radii=torch.zeros((n,), device=dev),
+        opt={kk: dict(mu=r(s, 1e-3), nu=r(s, 1e-3).square()) for kk, s in shapes.items()},
+        generator=torch.Generator(device=dev))
+    grads = {kk: r(s, 1e-3) for kk, s in shapes.items()}
+    g2d, radii = r((n, 2), 1e-5), torch.randint(-1, 12, (n,), generator=g,
+                                                 dtype=torch.int32).to(dev)
+    lrs = dict(means=5e-4, sh_dc=2.5e-3, sh_rest=1.25e-4, opacities_raw=0.05, scales_raw=5e-3,
+               quats=1e-3)
+    eager = dataclasses.replace(
+        st, params={kk: v.clone() for kk, v in st.params.items()},
+        opt={kk: {m: t.clone() for m, t in v.items()} for kk, v in st.opt.items()},
+        grad_accum=st.grad_accum.clone(), denom=st.denom.clone(),
+        max_radii=st.max_radii.clone())
+    rt._update(st, grads, lrs, g2d, radii, w, h)
+    rt._update_plain(eager, grads, lrs, g2d, radii, w, h)
+    torch.cuda.synchronize()
+    for kk in rt.GROUPS:
+        if not (torch.equal(st.params[kk], eager.params[kk])
+                and torch.equal(st.opt[kk]["mu"], eager.opt[kk]["mu"])
+                and torch.equal(st.opt[kk]["nu"], eager.opt[kk]["nu"])):
+            fail(f"J5: group {kk} differs from the eager update")
+    for f in ("grad_accum", "denom", "max_radii"):
+        if not torch.equal(getattr(st, f), getattr(eager, f)):
+            fail(f"J5: {f} differs from the eager update")
+    elems = sum(math.prod(s) for s in shapes.values())
+    j5 = {"update": with_bound(dict(
+        ms=device_ms(lambda: rt._update(st, grads, lrs, g2d, radii, w, h)),
+        events_ms=cuda_ms(lambda: rt._update(st, grads, lrs, g2d, radii, w, h), 20),
+        plain_ms=device_ms(lambda: rt._update_plain(eager, grads, lrs, g2d, radii, w, h)),
+        bytes_ms=(elems * 28 + n * 37) / HBM_BYTES_PER_S * 1e3, ops_ms=0.0, elements=elems))}
+    del st, eager, grads
+
+    common = dict(route="cuda", library_ms=None,
+                  replaces="none: no TPU kernel (XLA fuses the JAX package's chain)",
+                  timing="ms, plain_ms: device time per call (torch.profiler; plain_ms sums "
+                         "the eager chain's kernels); events_ms: back-to-back calls between "
+                         "CUDA events")
+    out = []
+    for name, jid, src, check, err, by in (
+            ("sh_colors", "J3", "gags_torch/core/csrc/sh.cu",
+             "forward exact; backward relative L2 against float64", 0.0,
+             dict(by_way=j3, rel_l2=j3_gaps, n=n, sh_degree=deg, k=k)),
+            ("photometric_loss", "J4", "gags_torch/rgb/csrc/photometric_loss.cu",
+             "relative gaps against float64", max(j4_gaps.values()),
+             dict(by_way=j4, rel_gaps=j4_gaps, image=f"{w}x{h}")),
+            ("adam_update", "J5", "gags_torch/rgb/csrc/adam.cu", "bit for bit", 0.0,
+             dict(by_way=j5, slots=n))):
+        head = next(iter(by["by_way"].values()))
+        out.append(dict(name=name, id=jid, source=src, check=check, max_abs_err=err,
+                        ms=head["ms"], events_ms=head["events_ms"], plain_ms=head["plain_ms"],
+                        bound_ms=head["bound_ms"], bound_by=head["bound_by"], **common, **by))
+        for way, v in by["by_way"].items():
+            print(f"# {jid} {way}: {v['ms']:.5f} ms device (events {v['events_ms']:.5f}), "
+                  f"eager chain {v['plain_ms']:.4f}, bound {v['bound_ms']:.5f} "
+                  f"({v['bound_by']}) ({gpu})", flush=True)
+    print(f"# J3 backward relative L2 against float64: {json.dumps(j3_gaps)}; J4 relative "
+          f"gaps: {json.dumps(j4_gaps)}", flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4114,8 +4303,12 @@ def main() -> int:
     t0 = time.perf_counter()
     from gags_torch.utils import jpeg
 
+    from gags_torch.core import sh as sh_mod
+    from gags_torch.rgb import kernels as rgb_step_kernels
+
     logs = _kernels.build(list(kernels.SOURCES) + list(probes.SOURCES)
-                          + [jpeg.JPEG_DECODE_SRC])
+                          + [jpeg.JPEG_DECODE_SRC, sh_mod.SH_SRC]
+                          + list(rgb_step_kernels.SOURCES))
     print(f"# {len(logs)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     for log in logs.values():
         for line in ptxas_summary(log):
@@ -4333,6 +4526,14 @@ def main() -> int:
         "serving": [launches["project_forward"], launches["project_backward"]],
     }
 
+    # -- 20. J3-J5, the RGB step's SH colours, loss and update --------------------
+    j3_5 = rgb_step_kernels_phase(dev, gpu)
+    counted = {"J3": ("sh_forward", "sh_backward"), "J4": ("loss_forward", "loss_backward"),
+               "J5": ("adam_update",)}
+    for r in j3_5:  # in phase 10's counted run, each way
+        r["launches"] = [k8["rgb_launches"].get(c, 0) for c in counted[r["id"]]]
+        r["launches_counted_in"] = f"RGB training, {RGB_STEPS} steps"
+
     # -- 17. report --------------------------------------------------------------
     f16 = k5["features"]
     keep = ("name", "id", "route", "source", "replaces", "launches", "check", "max_abs_err",
@@ -4406,6 +4607,7 @@ def main() -> int:
     })
     kernels_line["kernels"].extend(probe_kernels)
     kernels_line["kernels"].append(j2)
+    kernels_line["kernels"].extend(j3_5)
     kernels_line["kernels"].append(
         {**{k: j1[k] for k in keep}, **{k: v for k, v in j1.items() if k not in keep}})
     for r in kernels_line["kernels"]:  # phase 16: launches inside the ranks, by path

@@ -4,7 +4,9 @@ the pretrained scene GAS and GAD start from.
 L1 + 0.2 (1 - SSIM) photometric loss through the geometry-gradient
 rasterizer (K1 forward, K8 + K3 backward), per-group Adam with the
 exponential position schedule, SH-degree warm-up (the CLI's), and
-adaptive density control.
+adaptive density control. On CUDA the step's three eager chains are
+kernels: the SH colours J3 (`core.sh.sh_colors`), the loss J4 and the
+update J5 (`rgb.kernels`); on the CPU they run eagerly.
 
 The JAX package's fixed-capacity design is kept: the Gaussian buffers
 hold `capacity_factor` x N slots with an `alive` mask, clone and split
@@ -32,12 +34,13 @@ import torch
 
 from gags_torch import resolve_device
 from gags_torch.core.sh import sh_colors
+from gags_torch.rgb import kernels as rgb_kernels
+from gags_torch.rgb.kernels import photometric_loss
 from gags_torch.scene.densify import (densify_masks, reset_opacity_raw, split_means,
                                       split_scales_raw)
 from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig, rasterize
 from gags_torch.utils import tracing
-from gags_torch.utils.metrics import ssim
 
 DEAD_Z = -1.0e9  # parked slots sit far behind every camera, so they are culled
 GROUPS = ("means", "sh_dc", "sh_rest", "opacities_raw", "scales_raw", "quats")
@@ -174,6 +177,42 @@ def _adam_update(p, g, m, lr, step, b1=0.9, b2=0.999, eps=1e-15):
     p.copy_(p - lr * mu_hat / (torch.sqrt(nu_hat) + eps))
 
 
+@torch.no_grad()
+def _update_plain(state: RgbState, grads: Dict[str, torch.Tensor], lrs: Dict[str, float],
+                  g_m2d: torch.Tensor, radii: torch.Tensor, width: int, height: int) -> None:
+    """`_update` as the eager chain (J5's plain version), on any device."""
+    for k, p in state.params.items():
+        _adam_update(p, grads[k], state.opt[k], lrs[k], state.step)
+    alive = state.alive
+    state.params["means"].copy_(_park(state.params["means"], alive))
+    # screen-space positional gradient, scaled by (W/2, H/2) before the
+    # norm as the reference does (gaussian_model.py:476-482): the 2e-4
+    # threshold is calibrated in those units
+    g2d = torch.linalg.norm(torch.stack([g_m2d[:, 0] * (width * 0.5),
+                                         g_m2d[:, 1] * (height * 0.5)], dim=-1), dim=-1)
+    vis = radii > 0
+    state.grad_accum += torch.where(vis, g2d, torch.zeros_like(g2d))
+    state.denom += vis.to(torch.float32)
+    torch.maximum(state.max_radii, radii.to(torch.float32), out=state.max_radii)
+
+
+@torch.no_grad()
+def _update(state: RgbState, grads: Dict[str, torch.Tensor], lrs: Dict[str, float],
+            g_m2d: torch.Tensor, radii: torch.Tensor, width: int, height: int) -> None:
+    """The step's update in place: Adam on every group (`_adam_update`),
+    dead slots' means parked, the densification statistics. CUDA: one
+    launch of J5, bit for bit `_update_plain` on the card; CPU:
+    `_update_plain`."""
+    if state.means.device.type == "cpu":
+        _update_plain(state, grads, lrs, g_m2d, radii, width, height)
+        return
+    rgb_kernels.adam_update(
+        [state.params[k] for k in GROUPS], [grads[k] for k in GROUPS],
+        [state.opt[k] for k in GROUPS], [lrs[k] for k in GROUPS], state.step,
+        alive=state.alive, dead_z=DEAD_Z,
+        stats=(g_m2d, radii, width, height, state.grad_accum, state.denom, state.max_radii))
+
+
 def make_rgb_step(cfg: RgbConfig, width: int, height: int, spatial_scale: float):
     """The photometric step: render RGB → L1 + λ (1 − SSIM) → backward →
     Adam, plus the densification statistics (the reference's
@@ -202,10 +241,7 @@ def make_rgb_step(cfg: RgbConfig, width: int, height: int, spatial_scale: float)
             torch.sigmoid(params["opacities_raw"]), colors, vm, batch["K"], width, height,
             background=torch.zeros((3,), dtype=torch.float32, device=vm.device),
             config=cfg.raster, means2d_tap=tap, device=vm.device)
-        img = res.image
-        l1 = torch.mean(torch.abs(img - batch["image"]))
-        dssim = 1.0 - ssim(img, batch["image"])
-        return (1 - lam) * l1 + lam * dssim, res.radii
+        return photometric_loss(res.image, batch["image"], lam), res.radii
 
     def step(state: RgbState, batch, xyz_lr: float, sh_degree: int) -> Tuple[RgbState, dict]:
         with tracing.span("rgb.step"):
@@ -219,24 +255,11 @@ def make_rgb_step(cfg: RgbConfig, width: int, height: int, spatial_scale: float)
             lrs = dict(means=xyz_lr, sh_dc=cfg.feature_lr, sh_rest=cfg.feature_lr / 20.0,
                        opacities_raw=cfg.opacity_lr, scales_raw=cfg.scaling_lr,
                        quats=cfg.rotation_lr)
-            with tracing.span("rgb.update"), torch.no_grad():
-                for k, p in state.params.items():
-                    _adam_update(p, leaves[k].grad, state.opt[k], lrs[k], state.step)
-                alive = state.alive
-                state.params["means"].copy_(_park(state.params["means"], alive))
-                # screen-space positional gradient, scaled by (W/2, H/2)
-                # before the norm as the reference does (gaussian_model.py:
-                # 476-482): the 2e-4 threshold is calibrated in those units
-                g_m2d = tap.grad
-                g2d = torch.linalg.norm(torch.stack([g_m2d[:, 0] * (width * 0.5),
-                                                     g_m2d[:, 1] * (height * 0.5)], dim=-1),
-                                        dim=-1)
-                vis = radii > 0
-                state.grad_accum += torch.where(vis, g2d, torch.zeros_like(g2d))
-                state.denom += vis.to(torch.float32)
-                torch.maximum(state.max_radii, radii.to(torch.float32), out=state.max_radii)
+            with tracing.span("rgb.update"):
+                _update(state, {k: leaves[k].grad for k in GROUPS}, lrs, tap.grad, radii, width,
+                        height)
             state.step += 1
-            return state, dict(loss=loss.detach(), n_alive=torch.sum(alive))
+            return state, dict(loss=loss.detach(), n_alive=torch.sum(state.alive))
 
     return step
 

@@ -8,8 +8,8 @@ NCCL check of `nccl_main`: gags_torch.parallel with one rank a card)
 Phases, each of which fails the run:
   1. print the card's name and power limit (nvidia-smi); no CUDA → exit 1;
   2. build every kernel from gags_torch/splat/csrc, gags_torch/probes/csrc,
-     gags_torch/utils/csrc, gags_torch/core/csrc and gags_torch/rgb/csrc
-     (one nvcc per source, all at once);
+     gags_torch/utils/csrc, gags_torch/core/csrc, gags_torch/rgb/csrc and
+     gags_torch/gad/csrc (one nvcc per source, all at once);
   3. K6 expand_gid vs its plain version on the smoke scene's real rank
      offsets: exact; times of the kernel, the plain version and
      torch.searchsorted (the library yardstick), as device time per call
@@ -39,8 +39,9 @@ Phases, each of which fails the run:
      ids in [-1, 300)), then train 40 steps through
      gags_torch.cli.train_gad.run at -r 2 (640x360, 16-dim features,
      512-dim CLIP, 4096 segments) with the launch counts set to 0 just
-     before and read just after: K1-K4 must each have launched, the loss
-     must stay finite; step times from CUDA events;
+     before and read just after: K1-K4 must each have launched, J6 once
+     each way a step, the loss must stay finite; step times from CUDA
+     events;
   8. K1-K4 against their plain versions on camera 0's binning (overflow 0
      at budget factor 4) and the real cotangents of its loss, with times,
      bounds and index_add_ yardsticks (K1 and K2 by device time per call
@@ -258,13 +259,23 @@ Phases, each of which fails the run:
      (bytes: inputs read once, outputs written once, at 3.35 TB/s;
      operations: J4's float64 filter sums at 34 TFLOP/s); their launches
      are phase 10's counted run's;
+ 21. (run after phase 6) J6 (gad/csrc/supervision.cu), the GAD step's
+     per-pixel tail (the feature decoder's normalisation, the
+     scale-blended GT gather, the mask and the L1), alone at the GAD
+     cell's sizes (640x360 pixels, D 512, 300 float16 embeddings):
+     forward and backward against the plain version on the card (the L1
+     within 1e-5 relative, the gradients within 1e-5 relative L2 over the
+     rows whose every |y - gt| exceeds 1e-6);
+     device time (torch.profiler) and CUDA-events time beside the plain
+     version's device time and the bytes bound; its launches are phase 7's
+     counted run's, one each way a step;
  17. print {"kernels": [...]} with times, bounds and launch counts of
      K1-K8 (K1 by width: GAD C = 16, RGB C = 3; K3: GAD C = 16, RGB C = 3
      and 8; K6 by shape: serve, RGB aligned; K5, K6, K7 with their GAS
      stage-A launches; every kernel with its phase-16 launches), P1-P2,
      J2 (its launches in the counted runs of phases 10, 7 and 4: RGB
      training, GAD training, serving), J3-J5 (phase 10's) and J1 (its launches in phase 18's
-     training, GAS and convert runs),
+     training, GAS and convert runs), J6 (phase 7's),
      the query and multi-rank reports, then the card's name and power
      limit, then the final {"ok": true, ...}.
 """
@@ -311,6 +322,9 @@ J2_FWD_OPS, J2_BWD_OPS = 250, 570
 J3_N = 400_000
 J3_FWD_OPS, J3_BWD_OPS = 240, 400
 J4_FWD_OPS, J4_BWD_OPS = 240, 410
+# J6 (phase 21): the GAD cell's pixels at -r 2, CLIP width and masks a camera
+J6_H, J6_W, J6_D, J6_M = 360, 640, 512, 300
+J6_TIE = 1e-6  # a float32 |y - gt| below this may take either sign
 PROFILE_RUNS = 5  # device_ms's profiled runs at most before it gives up
 # device_ms's runs by calling function: accepted, short of records, the least share of a
 # name's records kept, refused by reason
@@ -475,7 +489,7 @@ def ptxas_summary(log: str) -> list[str]:
     """'<kernel><T,...>: N registers, S bytes spill stores, L bytes spill
     loads' per entry function, T,... its integer and bool template
     arguments (the blends' channel count and pixels a thread, K3's vector
-    width, K4's strip length, K7's cull)."""
+    width, K4's strip length, K7's cull, J6's row width / 128)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -485,6 +499,7 @@ def ptxas_summary(log: str) -> list[str]:
             ints = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
             name += f"<{','.join(ints)}>" if ints else ""
             name += "[bf16]" if "bfloat16" in line else ""
+            name += "[f16]" if "6__half" in line else ""
         elif "spill stores" in line:
             spill = ", ".join(part.strip() for part in line.split(",")[1:])
         elif "registers" in line and name:
@@ -688,6 +703,7 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
     from gags_torch.cli.serve import load_server
     from gags_torch.cli.train_gad import RunConfig, _bin_cache, run
     from gags_torch.core.camera import Camera
+    from gags_torch.gad import kernels as gad_kernels
     from gags_torch.gad.data import GadDataset
     from gags_torch.gad.supervision import mixed_seg_map
     from gags_torch.gad.train import (GadConfig, _supervision_losses, frozen_geometry,
@@ -719,16 +735,20 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
                        test_iterations="", device="cuda")
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
+        gad_kernels.reset_launch_counts()
         t0 = time.perf_counter()
         state = run(rc, on_step=on_step)
         torch.cuda.synchronize()
-        launches = dict(kernels.launch_counts)
+        launches = {**kernels.launch_counts, **gad_kernels.launch_counts}
         run_s = time.perf_counter() - t0
         print(f"# launches during training: {launches}")
         for name in ("blend_forward_aligned", "blend_backward", "sorted_segment_sum",
                      "dense_segment_sum"):
             if launches[name] <= 0:
                 fail(f"{name} was not launched while training")
+        for name in gad_kernels.launch_counts:  # J6: once each way a step
+            if launches[name] != TRAIN_STEPS:
+                fail(f"{name} launched {launches[name]} times in {TRAIN_STEPS} GAD steps")
         if launches["project_forward"] < TRAIN_STEPS:  # J2: one a step, one a camera's binning
             fail(f"project_forward launched {launches['project_forward']} times in {TRAIN_STEPS} "
                  f"GAD steps (at least {TRAIN_STEPS} expected)")
@@ -794,7 +814,8 @@ def train_phase(dev: torch.device, gpu: str, after_serving) -> tuple:
             px = feat_map.detach().reshape(-1, fdim)
             scale_px = state.scale_decoder(px)
             seg_mixed = mixed_seg_map(batch["seg_map"], scale_px.reshape(h, w, 3))
-            l1_pix = supervised_l1_pix(cfg, state.decoder(px), scale_px, batch).reshape(-1)
+            l1_pix = supervised_l1_pix(cfg, state.decoder.unnormalised(px), scale_px,
+                                       batch).reshape(-1)
         report = []
 
         # K1
@@ -2589,6 +2610,7 @@ def rgb_phase(dev: torch.device, gpu: str, after) -> tuple:
     from gags_torch.core import sh as sh_mod
     from gags_torch.core.sh import sh_colors
     from gags_torch.rgb import kernels as rgb_step_kernels
+    from gags_torch.gad import kernels as gad_kernels
     from gags_torch.rgb.train import RgbConfig, make_rgb_step
     from gags_torch.scene.dataset import camera_from_info, detect_and_load
     from gags_torch.scene.gaussian_data import GaussianScene
@@ -4275,6 +4297,85 @@ def rgb_step_kernels_phase(dev: torch.device, gpu: str) -> list:
     return out
 
 
+def gad_tail_phase(dev: torch.device, gpu: str) -> dict:
+    """Phase 21 (see the module docstring). Returns J6's kernels-line entry,
+    its launches left to the caller."""
+    from gags_torch.gad import kernels as gk
+    from gags_torch.gad import supervision as sup
+    from gags_torch.models.decoders import l2_normalise
+
+    h, w, d, m = J6_H, J6_W, J6_D, J6_M
+    p = h * w
+    g = torch.Generator().manual_seed(21)
+    x = (torch.randn((p, d), generator=g) * 0.05).to(dev)
+    table = torch.randn((m, d), generator=g)
+    table = (table / table.norm(dim=1, keepdim=True)).half().to(dev)
+    seg = torch.zeros((h, w, 4), dtype=torch.int32)
+    for level, block in zip((1, 2, 3), (12, 24, 48)):
+        coarse = torch.randint(-1, m, (-(-h // block), -(-w // block)), generator=g,
+                               dtype=torch.int32)
+        seg[..., level] = coarse.repeat_interleave(block, 0).repeat_interleave(block, 1)[:h, :w]
+    ids = seg.to(dev)[..., 1:4].reshape(p, 3)
+    scale = torch.softmax(torch.randn((p, 3), generator=g), -1).to(dev)
+    cot = torch.rand((p,), generator=g).to(dev)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b.double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale)]
+    plain = sup.fused_supervision_l1(l2_normalise(leaves[0]), table, ids, leaves[1])
+    want_x, want_s = torch.autograd.grad(plain, leaves, cot, retain_graph=True)
+    got = gk.supervision_forward(x, table, ids, scale)
+    got_x, got_s = gk.supervision_backward(x, table, ids, scale, cot)
+    with torch.no_grad():
+        margin = (l2_normalise(x) - sup._gather_terms(table.float(), ids, scale)).abs().amin(-1)
+    on = torch.all(ids != -1, dim=-1)
+    keep = on & (margin > J6_TIE)
+    gaps = dict(l1=rel(got, plain.detach()), d_x=rel(got_x[keep], want_x[keep]),
+                d_scale=rel(got_s[keep], want_s[keep]),
+                rows_left_out=float(1 - keep.sum() / on.sum()))
+    if max(gaps["l1"], gaps["d_x"], gaps["d_scale"]) > 1e-5 or gaps["rows_left_out"] > 0.02 \
+            or not (got[~on] == 0).all() or not (got_x[~on] == 0).all():
+        fail(f"J6 against its plain version: {gaps}")
+    del got_x, got_s, want_x, want_s, margin
+    row_bytes = d * 4 + 3 * 4 + 3 * 4  # the row, its ids and its scale weights
+    j6 = {
+        "forward": with_bound(dict(
+            ms=device_ms(lambda: gk.supervision_forward(x, table, ids, scale)),
+            events_ms=cuda_ms(lambda: gk.supervision_forward(x, table, ids, scale), 20),
+            plain_ms=device_ms(lambda: sup.fused_supervision_l1(l2_normalise(x), table, ids,
+                                                                scale)),
+            bytes_ms=(p * (row_bytes + 4) + table.numel() * 2) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=0.0)),
+        "backward": with_bound(dict(
+            ms=device_ms(lambda: gk.supervision_backward(x, table, ids, scale, cot)),
+            events_ms=cuda_ms(lambda: gk.supervision_backward(x, table, ids, scale, cot), 20),
+            plain_ms=device_ms(lambda: torch.autograd.grad(plain, leaves, cot,
+                                                           retain_graph=True)),
+            bytes_ms=(p * (row_bytes + 4 + d * 4 + 3 * 4) + table.numel() * 2)
+            / HBM_BYTES_PER_S * 1e3, ops_ms=0.0)),
+    }
+    del leaves, plain
+    for way, v in j6.items():
+        print(f"# J6 {way}: {v['ms']:.5f} ms device (events {v['events_ms']:.5f}), "
+              f"plain version {v['plain_ms']:.4f}, bound {v['bound_ms']:.5f} "
+              f"({v['bound_by']}) ({gpu})", flush=True)
+    print(f"# J6 against its plain version: {json.dumps(gaps)}", flush=True)
+    head = j6["forward"]
+    return dict(name="supervision_l1", id="J6", source="gags_torch/gad/csrc/supervision.cu",
+                check="l1 relative L2; gradients relative L2 over rows without a near tie",
+                max_abs_err=max(gaps["l1"], gaps["d_x"], gaps["d_scale"]), ms=head["ms"],
+                events_ms=head["events_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"], route="cuda",
+                library_ms=None,
+                replaces="none: no TPU kernel (XLA fuses the JAX package's chain)",
+                timing="ms, plain_ms: device time per call (torch.profiler; plain_ms sums "
+                       "the eager chain's kernels); events_ms: back-to-back calls between "
+                       "CUDA events",
+                by_way=j6, rel_gaps=gaps, pixels=p, width=d, masks=m)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4305,10 +4406,11 @@ def main() -> int:
 
     from gags_torch.core import sh as sh_mod
     from gags_torch.rgb import kernels as rgb_step_kernels
+    from gags_torch.gad import kernels as gad_kernels
 
     logs = _kernels.build(list(kernels.SOURCES) + list(probes.SOURCES)
                           + [jpeg.JPEG_DECODE_SRC, sh_mod.SH_SRC]
-                          + list(rgb_step_kernels.SOURCES))
+                          + list(rgb_step_kernels.SOURCES) + list(gad_kernels.SOURCES))
     print(f"# {len(logs)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     for log in logs.values():
         for line in ptxas_summary(log):
@@ -4485,6 +4587,10 @@ def main() -> int:
     flip_tolerant_compare(res.image, ref_img, "rasterize vs oracle (3000 Gaussians, 160x96)")
     flip_tolerant_compare(res.alpha, ref_alpha, "rasterize alpha vs oracle")
 
+    # -- 21. J6, the GAD step's per-pixel tail (early: the profiler loses more
+    # device records as the process ages) ------------------------------------------
+    j6 = gad_tail_phase(dev, gpu)
+
     # -- 7-9. train, K1-K4, serve the trained model; 9b. inference options -------
     cols_f = torch.cat([scene.semantic_features, torch.zeros((1, 16), device=dev)])[perm]
     serve_k5 = dict(chunk=cfg.chunk, args=(
@@ -4525,6 +4631,10 @@ def main() -> int:
                                                 gad_train_launches["project_backward"]],
         "serving": [launches["project_forward"], launches["project_backward"]],
     }
+
+    j6["launches"] = [gad_train_launches["supervision_forward"],
+                      gad_train_launches["supervision_backward"]]
+    j6["launches_counted_in"] = f"GAD training, {TRAIN_STEPS} steps"
 
     # -- 20. J3-J5, the RGB step's SH colours, loss and update --------------------
     j3_5 = rgb_step_kernels_phase(dev, gpu)
@@ -4608,6 +4718,7 @@ def main() -> int:
     kernels_line["kernels"].extend(probe_kernels)
     kernels_line["kernels"].append(j2)
     kernels_line["kernels"].extend(j3_5)
+    kernels_line["kernels"].append(j6)
     kernels_line["kernels"].append(
         {**{k: j1[k] for k in keep}, **{k: v for k, v in j1.items() if k not in keep}})
     for r in kernels_line["kernels"]:  # phase 16: launches inside the ranks, by path

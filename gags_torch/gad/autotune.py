@@ -6,8 +6,9 @@ steps on the running device and train with the faster one. The JAX
 package times four combinations of two switches; in the port one of them
 runs the same code either way:
 
-  * `fused_supervision`: the supervision blend, mask and L1 as one
-    autograd Function whose residuals are its raw inputs (same math) —
+  * `fused_supervision`: the feature decoder's normalisation, the
+    supervision blend, mask and L1 as one autograd Function whose
+    residuals are its raw inputs (same math; on CUDA the kernel J6) —
     a candidate;
   * `raster.fast_fwd_aligned`: kept only so JAX configs load; an aligned
     binning always launches K1 (`splat/rasterizer.py`), so flipping it

@@ -11,7 +11,9 @@ from typing import Tuple
 
 import torch
 
-from gags_torch.gad import losses
+from gags_torch.gad import kernels, losses
+from gags_torch.models.decoders import l2_normalise
+from gags_torch.splat.kernels import _dispatch
 from gags_torch.utils.image import mean_smooth, resize_bilinear_align_corners, resize_nearest
 
 
@@ -95,6 +97,17 @@ def fused_supervision_l1(decoded, img_embed, seg_sml, scale_map) -> torch.Tensor
     default-mode `blend_gt_feature_map`. decoded (..., D), img_embed (M, D),
     seg_sml (..., 3) the s/m/l ids, scale_map (..., 3); returns (...)."""
     return _FusedSupervisionL1.apply(decoded, img_embed, seg_sml, scale_map)
+
+
+def normalised_supervision_l1(raw, img_embed, seg_sml, scale_map) -> torch.Tensor:
+    """fused_supervision_l1 of the rows `raw` (..., D) L2-normalised as
+    FeatureDecoder normalises them (`FeatureDecoder.unnormalised` gives
+    them), differentiable in raw and scale_map. CUDA tensors: J6
+    (`gad/kernels.py`), one launch each way; CPU tensors: its plain
+    version, the normalisation and then `_FusedSupervisionL1`."""
+    if not _dispatch(raw):
+        return fused_supervision_l1(l2_normalise(raw), img_embed, seg_sml, scale_map)
+    return kernels.supervision_l1(raw, img_embed, seg_sml, scale_map)
 
 
 def blend_gt_feature_map(

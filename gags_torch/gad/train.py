@@ -15,7 +15,8 @@ are plain floats: (0.001, 0) before `schedule_switch`, (0.002, 0.1) after.
 Traced (utils/tracing), each span timed by CUDA events on the stream as
 well: `gad.render`
 (the rasterizer's forward), `gad.decoders` (the scale and feature
-decoders' forwards), `gad.losses` (mixed segmentation, supervision L1,
+decoders' forwards, the latter up to its normalisation), `gad.losses`
+(mixed segmentation, the normalisation and supervision L1 (J6 on CUDA),
 region losses, entropy), `gad.backward` and `gad.adam` (the three updates).
 """
 
@@ -31,8 +32,9 @@ import torch
 
 from gags_torch import resolve_device
 from gags_torch.gad import losses
-from gags_torch.gad.supervision import blend_gt_feature_map, fused_supervision_l1, mixed_seg_map
-from gags_torch.models.decoders import FeatureDecoder, ScaleDecoder
+from gags_torch.gad.supervision import (blend_gt_feature_map, mixed_seg_map,
+                                        normalised_supervision_l1)
+from gags_torch.models.decoders import FeatureDecoder, ScaleDecoder, l2_normalise
 from gags_torch.scene.gaussian_data import GaussianScene
 from gags_torch.splat.rasterizer import RasterizeConfig, rasterize, rasterize_binned
 from gags_torch.utils import tracing
@@ -51,8 +53,9 @@ class GadConfig:
     regionvar_w_late: float = 0.1
     schedule_switch: int = 15001
     single_scale: str = ""         # "", "s", "m", "l", "mix"
-    # residual-free supervision + L1 (same math as the generic composition;
-    # applies on the same-resolution default supervision path only)
+    # residual-free normalisation, supervision and L1, J6 on CUDA (same math
+    # as the generic composition; applies on the same-resolution default
+    # supervision path only)
     fused_supervision: bool = True
     # decoders under bfloat16 autocast: bf16 matmuls and activations, f32
     # parameters, f32 final normalise and softmax
@@ -158,18 +161,22 @@ def _decoder_precision(cfg: GadConfig, device: torch.device):
     return contextlib.nullcontext()
 
 
-def supervised_l1_pix(cfg: GadConfig, decoded, scale_map, batch):
-    """Masked per-pixel L1 against the blended GT map: the fused autograd
-    Function where it applies (supervision at render resolution, default
-    mode), the generic composition otherwise."""
+def supervised_l1_pix(cfg: GadConfig, raw, scale_map, batch):
+    """Masked per-pixel L1 of the feature decoder's rows against the
+    blended GT map; `raw` is its last layer before the normalisation
+    (`FeatureDecoder.unnormalised`). Where the fused autograd Function
+    applies (supervision at render resolution, default mode) it is
+    `normalised_supervision_l1` (J6 on CUDA); otherwise the rows are
+    normalised and composed generically."""
     seg_map = batch["seg_map"]
-    lead = tuple(decoded.shape[:-1])
+    lead = tuple(raw.shape[:-1])
     n_px = 1
     for s in lead:
         n_px *= int(s)
     if cfg.fused_supervision and n_px == int(seg_map.shape[0]) * int(seg_map.shape[1]):
-        return fused_supervision_l1(decoded, batch["img_embed"],
-                                    seg_map[..., 1:4].reshape(lead + (3,)), scale_map)
+        return normalised_supervision_l1(raw, batch["img_embed"],
+                                         seg_map[..., 1:4].reshape(lead + (3,)), scale_map)
+    decoded = l2_normalise(raw)
     gt_map, mask = blend_gt_feature_map(batch["img_embed"], seg_map, scale_map)
     maskf = mask.to(torch.float32)
     return losses.l1_map(decoded * maskf, gt_map * maskf)
@@ -199,9 +206,9 @@ def _supervision_losses(cfg: GadConfig, decoder, scale_decoder, feat_map, batch)
     with tracing.span("gad.losses", device=dev):
         seg_mixed = mixed_seg_map(batch["seg_map"], scale_px.reshape(hw + (3,)))
     with tracing.span("gad.decoders", device=dev), _decoder_precision(cfg, dev):
-        decoded = decoder(px).float()
+        raw = decoder.unnormalised(px)
     with tracing.span("gad.losses", device=dev):
-        l1_pix = supervised_l1_pix(cfg, decoded, scale_px, batch)
+        l1_pix = supervised_l1_pix(cfg, raw, scale_px, batch)
         l1_feature = losses.region_balanced_l1(l1_pix, seg_mixed, cfg.max_segments)
         ent = losses.scale_entropy_loss(scale_px)
         regvar = losses.region_variance_loss(px, seg_mixed, cfg.max_segments)

@@ -4,7 +4,8 @@ Every layer of the reference's decoders is a 1x1 convolution, i.e. a
 per-pixel MLP, so both are `nn.Linear` stacks over the last dimension.
 
   FeatureDecoder: 16→256, 7 x 256→256 with two additive skips, 256→512,
-    L2-normalised over channels with a rsqrt(max(sq, 1e-24)) guard.
+    L2-normalised over channels with a rsqrt(max(sq, 1e-24)) guard
+    (`l2_normalise`; `unnormalised` gives the rows before it).
   ScaleDecoder: 16→64→128→64→32→16→3, ReLU between, softmax over the
     three granularities.
 
@@ -33,6 +34,13 @@ def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator], dev
     return lin
 
 
+def l2_normalise(x: torch.Tensor) -> torch.Tensor:
+    """x over its L2 norm on the last dim, with the rsqrt(max(sq, 1e-24))
+    guard: FeatureDecoder's last step."""
+    sq = torch.sum(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(torch.clamp_min(sq, 1e-24))
+
+
 class FeatureDecoder(nn.Module):
     """(..., in_dim) distilled features → (..., output_dim) unit-norm CLIP space."""
 
@@ -44,6 +52,10 @@ class FeatureDecoder(nn.Module):
             self.add_module(f"d{i}", _linear(a, b, generator, device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return l2_normalise(self.unnormalised(x))
+
+    def unnormalised(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer's output before the normalisation, as float32."""
         relu = F.relu
         x1 = relu(self.d0(x))
         x2 = relu(self.d1(x1))
@@ -53,9 +65,7 @@ class FeatureDecoder(nn.Module):
         x4 = relu(self.d5(x4))
         x5 = relu(self.d6(x3 + x4))
         x5 = relu(self.d7(x5))
-        x5 = self.d8(x5).float()
-        sq = torch.sum(x5 * x5, dim=-1, keepdim=True)
-        return x5 * torch.rsqrt(torch.clamp_min(sq, 1e-24))
+        return self.d8(x5).float()
 
 
 class ScaleDecoder(nn.Module):

@@ -256,8 +256,8 @@ def _strip_local_loss(mesh: Mesh, axis: str, width: int, height: int, cfg: GadCo
         scale_map = torch.cat([scale_map, scale_map.new_zeros((strip_h - n_real, width, 3))])
         seg_mixed = _mixed_seg_map_strip(seg, scale_map, mesh, axis)
         with _decoder_precision(cfg, px.device):
-            decoded = state.decoder(px).float()
-        l1_pix = supervised_l1_pix(cfg, decoded, scale_px, dict(batch, seg_map=seg))
+            raw = state.decoder.unnormalised(px)
+        l1_pix = supervised_l1_pix(cfg, raw, scale_px, dict(batch, seg_map=seg))
         l1_feature = losses.region_balanced_l1(l1_pix, seg_mixed, cfg.max_segments, group=group)
         # scale_entropy_loss over the whole image: the strips' sums over H*W*3
         ent_sum = torch.sum(-scale_px * torch.log(scale_px + 1e-6))

@@ -173,8 +173,9 @@ def _fused_inputs(seed, h=6, w=10, d=16, m=5):
 def test_fused_supervision_matches_generic_composition(flat):
     """The fused autograd Function against the generic composition of
     blend_gt_feature_map + mask + l1_map, selected by a config built with
-    fused_supervision=False (not the default), value and both gradients;
-    and against the JAX package's fused VJP."""
+    fused_supervision=False (not the default), value and both gradients
+    of the decoder's rows before its normalisation; and against the JAX
+    package's fused VJP of the normalised rows."""
     decoded, embed, seg, scale, cot = _fused_inputs(7)
     h, w, d = decoded.shape
     batch = dict(img_embed=torch.as_tensor(embed), seg_map=torch.as_tensor(seg))
@@ -194,7 +195,9 @@ def test_fused_supervision_matches_generic_composition(flat):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
     def jfused(dec_, scale_):
-        return jnp.sum(js.fused_supervision_l1(dec_, jnp.asarray(embed), jnp.asarray(seg)[..., 1:4],
+        # the JAX FeatureDecoder's last step
+        unit = dec_ * jax.lax.rsqrt(jnp.maximum(jnp.sum(dec_ * dec_, -1, keepdims=True), 1e-24))
+        return jnp.sum(js.fused_supervision_l1(unit, jnp.asarray(embed), jnp.asarray(seg)[..., 1:4],
                                                scale_) * cot)
 
     gj = jax.grad(jfused, argnums=(0, 1))(jnp.asarray(decoded), jnp.asarray(scale))
